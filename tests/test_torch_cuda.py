@@ -10,7 +10,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import paged_case  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FLASH_PLANTS,
+    build_plants,
+    compare_flash,
+    flash_case,
+    flash_within,
+    paged_case,
+    planted,
+)
 from tf_operator_tpu_torch.models.transformer import init_transformer, preset  # noqa: E402
 from tf_operator_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from tf_operator_tpu_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
@@ -84,3 +92,63 @@ def test_tiny_engine_card_matches_cpu(dev):
     assert card.free_pages_start == card.free_pages_end
     assert fa.decode_launches - before == cfg.n_layers * (
         card.prefill_chunks + card.decode_steps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,h_kv,d,causal", [
+    (2, 200, 16, 4, 128, True), (1, 128, 16, 16, 128, False), (2, 77, 4, 2, 64, True),
+    (1, 33, 2, 1, 16, False),
+])
+def test_flash_kernels_match_plain(dev, dtype, b, t, h, h_kv, d, causal):
+    """K1-K3 against their plain versions: GQA and MHA, causal and not, t
+    off the tile grid, a nonzero lse cotangent; each kernel launched once."""
+    rng = np.random.RandomState(21)
+    before = (fa.flash_fwd_launches, fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+    errs = compare_flash(*flash_case(rng, b, t, h, h_kv, d, dtype, dev), causal)
+    assert (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,
+            fa.flash_bwd_dkv_launches) == tuple(n + 1 for n in before)
+    assert flash_within(errs), errs
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_PLANTS))
+def test_flash_check_fails_on_planted_fault(dev, name):
+    """A copy of a kernel with one planted fault (a key tile dropped for the
+    last rows, a causal mask off by one, a query tile dropped from dk/dv)
+    fails the check that the real kernels pass, in both types."""
+    lib = build_plants([name])[name]
+    kind = FLASH_PLANTS[name][0]
+    rng = np.random.RandomState(24)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = flash_case(rng, 1, 256, 4, 2, 64, dtype, dev)
+        assert flash_within(compare_flash(*args, True))
+        with planted(lib, kind):
+            errs = compare_flash(*args, True)
+        assert not flash_within(errs), (name, dtype, errs)
+
+
+def test_flash_attention_autograd_on_card(dev):
+    """The public entry on CUDA tensors: value and grads (through o and lse)
+    equal the plain versions' on the CPU, f32."""
+    rng = np.random.RandomState(22)
+    q, k, v, do, dlse = flash_case(rng, 2, 96, 8, 2, 64, torch.float32, "cpu")
+    outs = {}
+    for where in ("cpu", dev):
+        leaves = [x.detach().to(where).requires_grad_(True) for x in (q, k, v)]
+        o, lse = fa.flash_attention_lse(*leaves, causal=True)
+        torch.autograd.backward((o, lse), (do.to(where), dlse.to(where)))
+        outs[str(where)] = [x.detach().cpu() for x in (o, lse, *[a.grad for a in leaves])]
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_flash_kernel_refuses_unsupported(dev):
+    rng = np.random.RandomState(23)
+    q, k, v, do, dlse = flash_case(rng, 1, 32, 4, 2, 24, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_fwd_kernel(q, k, v, True)
+    q, k, v, do, dlse = flash_case(rng, 1, 32, 4, 2, 16, torch.float16, dev)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_attention(q, k, v, causal=True)
+    q, k, v, do, dlse = flash_case(rng, 1, 32, 4, 2, 256, torch.float32, dev)
+    with pytest.raises(ValueError, match="register tiles"):
+        fa.flash_attention(q, k, v, causal=True)

@@ -20,11 +20,14 @@ TOL = dict(atol=1e-6, rtol=1e-6)
 
 
 def test_presets_match_jax():
+    """Every field but dtype equal; dtype is bf16 in both (torch's and jnp's)."""
     assert set(tt.PRESETS) == set(jt.PRESETS)
     for name, jc in jt.PRESETS.items():
         fields = {f.name: getattr(jc, f.name) for f in dataclasses.fields(jc)
                   if f.name != "dtype"}
-        assert dataclasses.asdict(tt.PRESETS[name]) == fields, name
+        got = dataclasses.asdict(tt.PRESETS[name])
+        assert got.pop("dtype") == torch.bfloat16 and jc.dtype == jnp.bfloat16, name
+        assert got == fields, name
         assert tt.PRESETS[name].head_dim == jc.head_dim
         assert tt.PRESETS[name].n_params() == jc.n_params()
 
@@ -35,6 +38,7 @@ def test_preset_from_workload_matches_jax():
           "requests": 4}
     got = dataclasses.asdict(tt.preset_from_workload(wl))
     want = dataclasses.asdict(jt.preset_from_workload(wl))
+    got.pop("dtype")
     want.pop("dtype")
     assert got == want
     assert tt.preset_from_workload({}) == tt.PRESETS["tiny"]

@@ -1,10 +1,17 @@
-"""Decoder transformer family (Llama-2 recipe) — what serving needs.
+"""Decoder transformer family (Llama-2 recipe): serving and training.
 
 Port of ``tf_operator_tpu/models/transformer.py``: the config and its
 presets (same numbers), parameter init (same tree, keys, stacked
-``[L, ...]`` shapes and distributions), RMSNorm and rotary embeddings at
-absolute positions. The full forward, the loss and the remat modes come
-with the training slice.
+``[L, ...]`` shapes and distributions), RMSNorm and rotary embeddings,
+the dense decoder layer with ``dense`` or ``flash`` attention, the remat
+modes none, full and ``save_mid`` (``torch.utils.checkpoint``), the
+forward and the causal LM loss, fused or not. Master params stay f32 and
+are cast to ``cfg.dtype`` inside the layer, as in the JAX package.
+
+Not ported yet, and raising where asked for: MoE layers (ROADMAP M11),
+ring and Ulysses attention (M12), meshes and sharding (M8), pipeline
+parallelism (M13), the other named remat policies and ``dots`` (M2), and
+the bidirectional MLM loss (M2).
 
 Init draws from an explicit ``torch.Generator``; it cannot reproduce
 ``jax.random``'s bits, so parity tests convert the JAX package's params
@@ -14,18 +21,21 @@ Init draws from an explicit ``torch.Generator``; it cannot reproduce
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
 
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """Same fields as the JAX config except ``dtype``: the port's serving
-    path is f32 throughout. Training-only fields are kept so every
-    workload dict that configures the JAX package configures this one."""
+    """Same fields as the JAX config, so every workload dict that
+    configures the JAX package configures this one. ``dtype`` is the
+    activation dtype of the training forward (bf16, as in JAX); the
+    serving engine ignores it and runs f32 throughout."""
 
     vocab: int = 32000
     d_model: int = 4096
@@ -37,6 +47,7 @@ class TransformerConfig:
     causal: bool = True
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
     remat: Any = True
     attn_impl: str = "dense"
     cp_axis: str = "cp"
@@ -72,6 +83,15 @@ class TransformerConfig:
             mlp = self.n_experts * mlp + d * self.n_experts
         per_layer = d * d + 2 * d * kv + d * d + mlp + 2 * d
         return v * d + L * per_layer + d
+
+    def n_active_params(self) -> int:
+        """Params touched per token (= n_params for dense; top-k MoE
+        activates k experts): the N of 6ND FLOP accounting."""
+        if not self.n_experts:
+            return self.n_params()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        inactive = (self.n_experts - self.moe_top_k) * 3 * d * f
+        return self.n_params() - L * inactive
 
 
 PRESETS: Dict[str, TransformerConfig] = {
@@ -232,3 +252,184 @@ def rope_at_positions(x: torch.Tensor, positions: torch.Tensor, theta: float) ->
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding at positions 0..t-1 (the training forward):
+    rope_at_positions at arange(t). x: [b, t, h, d_head]."""
+    b, t = x.shape[:2]
+    pos = torch.arange(t, device=x.device).expand(b, t)
+    return rope_at_positions(x, pos, theta)
+
+
+def _attention(q, k, v, cfg: TransformerConfig):
+    """q: [b, t, nh, hd]; k/v: [b, t, nkv, hd]. GQA-native on both paths:
+    no [b, t, nh, hd] K/V tensor exists. ``flash`` runs the hand-written
+    kernels on the card (ops/flash_attention.py); ``dense`` the grouped
+    einsum with an f32 softmax, the same math."""
+    from tf_operator_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        reference_attention,
+    )
+
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP M12)")
+    if cfg.attn_impl == "flash":
+        return flash_attention(q, k, v, causal=cfg.causal)
+    if cfg.attn_impl != "dense":
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    return reference_attention(q, k, v, causal=cfg.causal)
+
+
+def _attn_block(x, lp, cfg: TransformerConfig):
+    """Layer input -> ``resid_mid`` (x + attention), the first half of _layer."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ lp["wq"].to(x.dtype)).reshape(b, t, -1, hd)
+    k = (h @ lp["wk"].to(x.dtype)).reshape(b, t, -1, hd)
+    v = (h @ lp["wv"].to(x.dtype)).reshape(b, t, -1, hd)
+    q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
+    attn = _attention(q, k, v, cfg).reshape(b, t, -1)
+    return x + attn @ lp["wo"].to(x.dtype)
+
+
+def _mlp_block(x, lp, cfg: TransformerConfig):
+    """``resid_mid`` -> layer output (x + SwiGLU MLP), the second half."""
+    h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    z_gate = h @ lp["w_gate"].to(x.dtype)
+    up = h @ lp["w_up"].to(x.dtype)
+    return x + (F.silu(z_gate) * up) @ lp["w_down"].to(x.dtype)
+
+
+def _layer(x, lp, cfg: TransformerConfig):
+    """One dense decoder layer (pre-norm attention, then pre-norm SwiGLU)."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP M11)")
+    return _mlp_block(_attn_block(x, lp, cfg), lp, cfg)
+
+
+# Remat policies of the JAX package (name -> the activations it saves).
+# The port runs "save_mid"; the others raise until ported.
+_REMAT_SAVE_SETS: Dict[str, tuple] = {
+    "save_mid": ("resid_mid",),
+    "save_qkv": ("flash_q", "flash_k", "flash_v"),
+    "save_qkv_mid": ("flash_q", "flash_k", "flash_v", "resid_mid"),
+    "save_qkv_mid_up": ("flash_q", "flash_k", "flash_v", "resid_mid", "mlp_up"),
+    "save_qkv_mid_mlp": (
+        "flash_q", "flash_k", "flash_v", "resid_mid", "mlp_up", "mlp_gate",
+    ),
+    "save_mlp_mid": ("resid_mid", "mlp_gate", "mlp_up"),
+}
+
+# Every activation name the JAX model tags: the validation domain of
+# "save:" policies.
+KNOWN_SAVE_NAMES = frozenset(
+    {"flash_q", "flash_k", "flash_v", "resid_mid", "mlp_gate", "mlp_up"}
+)
+
+
+def remat_save_names(remat) -> Optional[tuple]:
+    """The activation names a remat mode saves (None for non-name modes):
+    a _REMAT_SAVE_SETS alias or ``"save:name1,name2"``. Unknown names in a
+    ``save:`` policy raise: a typo would otherwise save nothing."""
+    if isinstance(remat, str):
+        if remat in _REMAT_SAVE_SETS:
+            return _REMAT_SAVE_SETS[remat]
+        if remat.startswith("save:"):
+            names = tuple(n.strip() for n in remat[5:].split(",") if n.strip())
+            unknown = sorted(set(names) - KNOWN_SAVE_NAMES)
+            if unknown:
+                raise ValueError(
+                    f"remat policy {remat!r}: unknown activation name(s) "
+                    f"{unknown}; known names: {sorted(KNOWN_SAVE_NAMES)}"
+                )
+            return names
+    return None
+
+
+def _remat_wrap(cfg: TransformerConfig):
+    """layer(x, lp) under cfg.remat. ``full`` saves only the layer input
+    and recomputes the layer in the backward; ``save_mid`` saves the layer
+    input and ``resid_mid``, i.e. two checkpointed regions split there, so
+    the backward recomputes the attention half from x and the MLP half
+    from resid_mid (and the flash forward runs again, as in JAX)."""
+    remat = cfg.remat
+    if remat in (True, "full"):
+        return lambda x, lp: checkpoint(_layer, x, lp, cfg, use_reentrant=False)
+    if remat in (False, None, "none"):
+        return lambda x, lp: _layer(x, lp, cfg)
+    names = remat_save_names(remat)
+    if names == ("resid_mid",):
+        def save_mid(x, lp):
+            if cfg.n_experts:
+                raise NotImplementedError("MoE layers are not ported yet (ROADMAP M11)")
+            mid = checkpoint(_attn_block, x, lp, cfg, use_reentrant=False)
+            return checkpoint(_mlp_block, mid, lp, cfg, use_reentrant=False)
+        return save_mid
+    if names is not None or remat == "dots":
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP M2: the port runs "
+            "none, full and save_mid)")
+    raise ValueError(f"unknown remat mode {remat!r}")
+
+
+def _check_supported(cfg: TransformerConfig, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("meshes and sharding are not ported yet (ROADMAP M8)")
+    if cfg.pp_microbatches:
+        raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP M13)")
+    if cfg.n_experts:
+        raise NotImplementedError("MoE layers are not ported yet (ROADMAP M11)")
+
+
+def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None):
+    """tokens: [b, t] int -> final-norm hidden states [b, t, d] (cfg.dtype).
+    A Python loop over the stacked [L, ...] layer leaves. The embedding row
+    is gathered in f32 and then cast (the same values as JAX's gather from
+    the cast table), so its gradient accumulates in f32."""
+    _check_supported(cfg, mesh)
+    layer_fn = _remat_wrap(cfg)
+    x = params["embed"][tokens].to(cfg.dtype)
+    # unbind once: its backward stacks the L per-layer grads in one op,
+    # where indexing leaf[i] per layer would add a full [L, ...] zero-padded
+    # grad into the stack L times
+    layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    for i in range(cfg.n_layers):
+        x = layer_fn(x, {name: leaf[i] for name, leaf in layers.items()})
+    return _rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None):
+    """tokens: [b, t] int -> logits [b, t, vocab] (f32); tied output head."""
+    x = transformer_hidden(params, tokens, cfg, mesh)
+    return (x @ params["embed"].to(cfg.dtype).T).float()
+
+
+def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None):
+    """Causal next-token cross entropy: (total_loss, {"ce_loss"}). Fused
+    (ops/fused_cross_entropy.py, no [b, t, vocab] logits in memory) or the
+    unfused log-softmax, the same math."""
+    if not cfg.causal:
+        raise NotImplementedError(
+            "the bidirectional MLM loss is not ported yet (ROADMAP M2)")
+    h = transformer_hidden(params, tokens, cfg, mesh)
+    if cfg.fused_xent:
+        from tf_operator_tpu_torch.ops.fused_cross_entropy import fused_cross_entropy
+
+        h = h[:, :-1]
+        b, t, d = h.shape
+        ce = fused_cross_entropy(
+            h.reshape(b * t, d), params["embed"], tokens[:, 1:].reshape(b * t))
+    else:
+        logits = (h @ params["embed"].to(cfg.dtype).T).float()[:, :-1]
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+        ce = -ll.mean()
+    return ce, {"ce_loss": ce}
+
+
+def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None):
+    """Scalar training loss (lm_loss_and_metrics without the metrics)."""
+    return lm_loss_and_metrics(params, tokens, cfg, mesh)[0]

@@ -1,0 +1,195 @@
+"""Single-device trainer: init, step and multi-step on one card.
+
+Port of ``tf_operator_tpu/train/trainer.py`` without meshes (ROADMAP M8),
+without the compile-overlap machinery, which PyTorch's eager mode does
+not need, and without ``multi_step`` (the step loop runs K steps as a
+Python loop). Usage shape:
+
+    trainer = Trainer(loss_fn=..., init_fn=..., config=TrainerConfig(...))
+    state = trainer.init(seed)
+    state, metrics = trainer.step(state, batch)
+
+``loss_fn(params, batch, extra) -> loss`` or ``(loss, new_extra)``;
+``init_fn(generator) -> params`` or ``(params, extra)``, where the
+generator is a ``torch.Generator`` on the trainer's device.
+
+The optimizer is written out rather than taken from ``torch.optim``, so
+that it is optax's ``chain(clip_by_global_norm(grad_clip), adamw(...))``
+update for update: optax's clip scales by ``max_norm / norm`` only when
+``norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` scales by
+``max_norm / (norm + 1e-6)`` whenever the ratio is below 1), and the
+schedule sees optax's count (0 at the first update) while the bias
+correction uses count + 1. Params, moments and grads are f32 and are
+updated in place, where the JAX trainer donates them to its jitted step.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from tf_operator_tpu_torch.compat import tree_map
+from tf_operator_tpu_torch.device import DeviceLike, resolve_device
+
+
+@dataclass
+class TrainerConfig:
+    """The JAX TrainerConfig's fields and defaults. ``fast_init_rng`` is
+    accepted and ignored: it picks a JAX PRNG implementation. Only AdamW
+    is ported; ``sgd`` (and so ``momentum``) raises."""
+
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: Optional[float] = 1.0
+    warmup_steps: int = 0
+    lr_schedule: str = "constant"  # "constant" | "cosine"
+    total_steps: int = 10000
+    # >1 splits each step's batch into grad_accum equal microbatches and
+    # applies one update with the mean of the microbatch-mean gradients
+    grad_accum: int = 1
+    fast_init_rng: bool = False
+
+
+@dataclass
+class TrainState:
+    params: Any
+    opt_state: Any
+    step: int
+    extra: Any = None
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def learning_rate_at(cfg: TrainerConfig, count: int) -> float:
+    """The schedule of the JAX _make_tx at optax's update count (0 first):
+    constant; linear warmup from 0; or warmup then cosine decay to 0."""
+    lr = cfg.learning_rate
+    if cfg.lr_schedule == "cosine":
+        warm = max(cfg.warmup_steps, 1)
+        if count < warm:
+            return _f32(lr * count / warm)
+        decay = cfg.total_steps - warm
+        c = min(count - warm, decay)
+        return _f32(lr * 0.5 * (1.0 + math.cos(math.pi * c / decay)))
+    if cfg.warmup_steps:
+        return _f32(lr * min(count, cfg.warmup_steps) / cfg.warmup_steps)
+    return lr
+
+
+class Trainer:
+    """init/step over a params tree of f32 tensors on one device."""
+
+    def __init__(self, loss_fn: Callable, init_fn: Callable,
+                 config: Optional[TrainerConfig] = None, device: DeviceLike = None):
+        self.config = config if config is not None else TrainerConfig()
+        if self.config.optimizer == "sgd":
+            raise NotImplementedError("optimizer 'sgd' is not ported yet (ROADMAP M4)")
+        if self.config.optimizer != "adamw":
+            raise ValueError(f"unknown optimizer {self.config.optimizer!r}")
+        self.loss_fn = loss_fn
+        self.init_fn = init_fn
+        self.device = resolve_device(device)
+
+    # ---- init -----------------------------------------------------------
+
+    def init_opt_state(self, params) -> Dict[str, Any]:
+        """AdamW state as optax keeps it: the update count and two moments."""
+        zeros = lambda p: torch.zeros_like(p)  # noqa: E731
+        return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+
+    def init(self, seed: int = 0) -> TrainState:
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        out = self.init_fn(gen)
+        params, extra = out if isinstance(out, tuple) else (out, None)
+        return self.state_from_params(params, extra)
+
+    def state_from_params(self, params, extra=None) -> TrainState:
+        """A fresh TrainState (zero moments, step 0) around given params."""
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        return TrainState(params, self.init_opt_state(params), 0, extra)
+
+    # ---- step -----------------------------------------------------------
+
+    def _loss(self, params, batch, extra):
+        out = self.loss_fn(params, batch, extra)
+        return out if isinstance(out, tuple) else (out, extra)
+
+    def _grads(self, state: TrainState, batch):
+        """(loss, new_extra): grads land in each param's .grad (f32)."""
+        params = _leaves(state.params)
+        for p in params:
+            p.grad = None
+        accum = self.config.grad_accum
+        if accum <= 1:
+            loss, extra = self._loss(state.params, batch, state.extra)
+            loss.backward()
+            return loss.detach(), extra
+
+        def split(x):
+            if x.shape[0] % accum:
+                raise ValueError(f"batch dim {x.shape[0]} not divisible by grad_accum={accum}")
+            return x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
+
+        micro = tree_map(split, batch)
+        extra, loss_sum = state.extra, torch.zeros((), device=self.device)
+        for i in range(accum):
+            loss, extra = self._loss(state.params, tree_map(lambda m: m[i], micro), extra)
+            loss.backward()  # .grad sums the microbatch grads in f32
+            loss_sum = loss_sum + loss.detach()
+        inv = 1.0 / accum
+        for p in params:
+            p.grad.mul_(inv)
+        return loss_sum * inv, extra
+
+    @torch.no_grad()
+    def _apply(self, state: TrainState) -> None:
+        cfg = self.config
+        params = _leaves(state.params)
+        grads = [p.grad for p in params]
+        if cfg.grad_clip:
+            # optax clip_by_global_norm: g if norm < max else g / norm * max,
+            # decided on the device (no host sync)
+            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            factor = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
+                                 cfg.grad_clip / norm)
+            for g in grads:
+                g.mul_(factor)
+        opt = state.opt_state
+        count = opt["count"]
+        lr = learning_rate_at(cfg, count)
+        b1, b2 = cfg.beta1, cfg.beta2
+        # optax's bias corrections, in f32 as there
+        bc1 = _f32(1.0 - np.float32(b1) ** np.float32(count + 1))
+        bc2 = _f32(1.0 - np.float32(b2) ** np.float32(count + 1))
+        for p, g, m, v in zip(params, grads, _leaves(opt["mu"]), _leaves(opt["nu"])):
+            m.mul_(b1).add_(g, alpha=1.0 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+            upd = (m / bc1).div_((v / bc2).sqrt_().add_(1e-8))
+            if cfg.weight_decay:
+                upd.add_(p, alpha=cfg.weight_decay)
+            p.add_(upd, alpha=-lr)
+        opt["count"] = count + 1
+        for p in params:
+            p.grad = None
+
+    def step(self, state: TrainState, batch):
+        """One update: (state, {"loss": f32 scalar tensor}), no host sync."""
+        loss, extra = self._grads(state, batch)
+        self._apply(state)
+        return TrainState(state.params, state.opt_state, state.step + 1, extra), {"loss": loss}

@@ -1,0 +1,165 @@
+"""Transformer language-model training workload on the port (operator-launchable).
+
+Port of ``tf_operator_tpu/workloads/lm.py``: trains a transformer preset
+with the single-device Trainer on synthetic tokens and logs tokens/s and
+MFU. The operator launches ``tf_operator_tpu_torch.workloads.lm:main``
+like any entrypoint; ``main`` uses the context only through its
+attributes (``workload``, ``num_processes``, ``mark_first_step``).
+
+Workload keys: the JAX workload's (preset and TransformerConfig overrides
+including ``attn`` and ``remat``, steps, batch_size, seq_len, lr,
+grad_accum, data, device_loop, profile_dir, fail_at_step, fail_marker)
+plus ``device`` (default ``cuda``). Declared differences from the JAX
+workload:
+
+- ``data: fixed`` draws its batch with
+  ``np.random.RandomState(1).randint(0, vocab, (batch, seq))``, where JAX
+  uses ``jax.random.randint(PRNGKey(1), ...)``; init draws from a
+  ``torch.Generator`` seeded 0 where JAX uses ``PRNGKey(0)``.
+- Not ported yet, and raising: ``data: stream``/``memmap`` (ROADMAP M5),
+  ``checkpoint_dir`` (M6), more than one process (M8), MoE presets (M11).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional
+
+import numpy as np
+import torch
+
+from tf_operator_tpu_torch.device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.models.transformer import (
+    TransformerConfig,
+    init_transformer,
+    lm_loss,
+    preset_from_workload,
+)
+from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
+from tf_operator_tpu_torch.train.metrics import (
+    mfu,
+    transformer_train_flops,
+    transformer_train_flops_exact,
+)
+from tf_operator_tpu_torch.train.profile import profile_ctx
+from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig, TrainState
+
+log = logging.getLogger("tpujob.lm")
+
+# The operator's user-retryable exit code (128 + SIGUSR1), the port's own
+# copy of the JAX package's utils/exit_codes.USER_RETRYABLE_CODE: the
+# harness passes an int SystemExit code through as the process's exit code.
+USER_RETRYABLE_CODE = 138
+
+
+@dataclass
+class LMRun:
+    """What one run of the workload gives back."""
+
+    cfg: TransformerConfig
+    trainer: Trainer
+    state: TrainState
+    tokens: torch.Tensor
+    loss: float
+    losses: List[float]  # every step's loss, warmup included
+    timed: int
+    step_s: Optional[float]
+    tokens_per_step: int
+    device: torch.device
+    flops_6nd: float
+    flops_exact: float
+
+    @property
+    def tokens_per_s(self) -> Optional[float]:
+        return self.tokens_per_step / self.step_s if self.step_s else None
+
+    def mfu(self, flops: float) -> Optional[float]:
+        """MFU against the card's peak; None off CUDA or untimed."""
+        if self.step_s is None or self.device.type != "cuda":
+            return None
+        return mfu(flops, self.step_s, 1, self.device)
+
+
+def fixed_tokens(batch: int, seq: int, vocab: int, device) -> torch.Tensor:
+    """The ``data: fixed`` batch (a declared difference: numpy, not jax.random)."""
+    tokens = np.random.RandomState(1).randint(0, vocab, (batch, seq))
+    return torch.from_numpy(tokens).to(device)
+
+
+def run_lm(wl: dict, device: DeviceLike = None,
+           on_step: Optional[Callable[[int], None]] = None) -> LMRun:
+    """Build the model from ``wl``, train ``steps`` timed steps after one
+    warmup step, and return an LMRun. ``device`` overrides the workload's
+    ``device`` key (default ``cuda``)."""
+    dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
+    steps = max(2, int(wl.get("steps", 10)))
+    batch = int(wl.get("batch_size", 8))
+    seq = int(wl.get("seq_len", 512))
+    cfg = preset_from_workload(wl)
+    data_mode = wl.get("data", "fixed")
+    if data_mode != "fixed":
+        raise NotImplementedError(f"data: {data_mode!r} is not ported yet (ROADMAP M5)")
+    ckpt = WorkloadCheckpointer(wl)
+    trainer = Trainer(
+        loss_fn=lambda params, tokens, extra: lm_loss(params, tokens, cfg),
+        init_fn=lambda gen: init_transformer(cfg, gen, dev),
+        config=TrainerConfig(
+            optimizer="adamw", learning_rate=float(wl.get("lr", 3e-4)),
+            grad_accum=int(wl.get("grad_accum", 1)),
+        ),
+        device=dev,
+    )
+    tokens = fixed_tokens(batch, seq, cfg.vocab, dev)
+    with profile_ctx(wl.get("profile_dir")):
+        state, loss, timed, step_s = ckpt.run_loop(
+            trainer, 0, tokens, steps, on_step=on_step,
+            device_loop=int(wl.get("device_loop", 1)),
+        )
+    n = cfg.n_active_params()
+    return LMRun(
+        cfg=cfg, trainer=trainer, state=state, tokens=tokens, loss=loss,
+        losses=[float(x) for x in ckpt.step_losses], timed=timed, step_s=step_s,
+        tokens_per_step=batch * seq, device=dev,
+        flops_6nd=transformer_train_flops(n, batch * seq),
+        flops_exact=transformer_train_flops_exact(n, batch * seq, cfg.n_layers,
+                                                  cfg.d_model, seq),
+    )
+
+
+def main(ctx) -> None:
+    wl = ctx.workload
+    if int(getattr(ctx, "num_processes", 1) or 1) > 1:
+        raise NotImplementedError(
+            "multi-process training is not ported yet (ROADMAP M8)")
+    # Fault injection (fail_at_step + fail_marker): die retryably once at
+    # the given global step; the marker file makes it once-only. With
+    # device_loop=K the check runs per chunk, up to K-1 steps late.
+    fail_at = int(wl.get("fail_at_step", 0))
+    marker = wl.get("fail_marker")
+    first_step_marked = []
+
+    def on_step(step: int) -> None:
+        if not first_step_marked:
+            first_step_marked.append(step)
+            ctx.mark_first_step(step)
+        if fail_at and marker and step >= fail_at and not os.path.exists(marker):
+            open(marker, "w").close()
+            log.warning("fault injection: requesting retry at step %d", step)
+            raise SystemExit(USER_RETRYABLE_CODE)
+
+    run = run_lm(wl, on_step=on_step)
+    preset = wl.get("preset", "tiny")
+    if run.step_s is None:
+        log.info("lm done: preset=%s loss=%.4f (no timed steps remained)", preset, run.loss)
+        return
+    m_exact, m_6nd = run.mfu(run.flops_exact), run.mfu(run.flops_6nd)
+    log.info(
+        "lm done: preset=%s loss=%.4f step=%.2fms tok/s=%.0f mfu_attn=%s "
+        "mfu_6nd=%s (1 chip, %s)",
+        preset, run.loss, run.step_s * 1e3, run.tokens_per_s,
+        "n/a" if m_exact is None else f"{m_exact:.3f}",
+        "n/a" if m_6nd is None else f"{m_6nd:.3f}",
+        torch.cuda.get_device_name(run.device) if run.device.type == "cuda" else "cpu",
+    )
