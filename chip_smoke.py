@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving and training paths (dense and MoE) on
+one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the checkout's sources, then prints
-one JSON line per phase. Serving path:
+Builds the port's CUDA kernels from the checkout's sources, and the
+planted-fault copies of phases 8 and 14, all at once (one ``nvcc`` per
+source), then prints one JSON line per phase. Serving path:
 
 1. ``device``: the card's name and power limit (nvidia-smi) and the
    kernels' build time and registers.
@@ -34,8 +35,8 @@ Training path:
 
 7. ``flash_check``: the flash forward, dQ and dK/dV kernels against their
    plain versions, element by element (gqa-2048's heads and MHA, causal
-   and not, t of 128, 200 and 2048, f32 and bf16, a nonzero lse
-   cotangent).
+   and not, t of 128, 200 and 2048; moe-small's heads, 12 / 12 at d 64,
+   causal, t 512 and 2048; f32 and bf16, a nonzero lse cotangent).
 8. ``flash_plant``: copies of the flash sources, each with one planted
    fault (a key tile dropped for the last rows, a causal mask off by
    one, a query tile dropped from dK/dV), built and run at t 2048: the
@@ -54,7 +55,41 @@ Training path:
     bounds, their plain versions and SDPA (forward, and the backward
     that computes dq, dk and dv in one call).
 
-Then the ``kernels`` line, the nvidia-smi line, and as the last line
+MoE training path:
+
+13. ``gmm_check``: the four grouped-matmul kernels (forward, forward with
+    row scale, dw, dw with row scale) and the forward on transposed
+    weights (the dx use) against their plain versions, element by
+    element, in bf16 and f32: moe-small's gate/up (768 -> 3072) and down
+    (3072 -> 768) products at 10240 routed rows with an expert that gets
+    no token (padding rows carry zero cotangents and scales, as in the
+    model), and a map with sentinel blocks, experts without blocks and
+    interleaved blocks of one expert at widths off the tile grid.
+    Sentinel rows and the dw of an expert without tokens must be exact
+    zeros.
+14. ``gmm_plant``: copies of the grouped-matmul source, each with one
+    planted fault (a sentinel block computed instead of zeroed, a dw walk
+    that skips an expert's last block, the weights of the neighbouring
+    expert): the check of phase 13 must fail on each.
+15. ``moe_train``: ``moe-small`` at full width and depth (b 16, t 512,
+    flash attention, full remat, bf16, AdamW; 8 experts, top-1, gmm
+    dispatch), one warmup and 8 timed steps through ``run_lm``: per layer
+    and step exactly 7 / 2 / 2 / 1 launches of the four grouped-matmul
+    kernels and 2 / 1 / 1 of the flash kernels; finite and falling loss;
+    the router health line; step time, tokens/s, MFU on the active params
+    and peak memory.
+16. ``moe_train_breakdown``: as phase 10, the grouped-matmul kernels a
+    family of their own.
+17. ``moe_parity``: moe-small width at 2 layers, t 256: f32 loss, MoE
+    metrics and grads on the card against the CPU, and 3 bf16 steps with
+    the kernels against 3 with the plain versions.
+18. ``gmm_timing``: the four kernels at the moe_train shapes beside their
+    bounds, their plain versions and ``torch._grouped_mm`` on the same
+    expert groups (or one ``torch.mm`` of the same FLOPs where the card's
+    PyTorch lacks it or it disagrees, which the line says).
+
+Then a ``wall`` line (seconds per phase), the ``kernels`` line, the
+nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 then exits non-zero and prints no result. Without a CUDA device it exits
 1 at once.
@@ -78,10 +113,13 @@ from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.transformer import (
     init_transformer,
     lm_loss,
+    lm_loss_and_metrics,
     preset_from_workload,
 )
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import grouped_matmul as gm
+from tf_operator_tpu_torch.parallel.moe import block_layout
 from tf_operator_tpu_torch.serve.engine import (
     ServeConfig,
     ServeEngine,
@@ -90,7 +128,7 @@ from tf_operator_tpu_torch.serve.engine import (
 )
 from tf_operator_tpu_torch.serve.kvcache import PagePool, SequencePages, pages_needed
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
-from tf_operator_tpu_torch.workloads.lm import fixed_tokens, run_lm
+from tf_operator_tpu_torch.workloads.lm import fixed_tokens, router_metrics, run_lm
 from tf_operator_tpu_torch.workloads.serve import _quantile, run_serve, synthesize_requests
 
 SERVE_WL = {
@@ -104,6 +142,23 @@ TRAIN_WL = {
     "preset": "gqa-2048", "steps": 8, "batch_size": 6, "seq_len": 2048,
     "attn": "flash", "remat": "save_mid", "lr": 3e-4, "data": "fixed",
 }
+# The MoE training job (examples/moe_small_h100.json) at full width and
+# depth, 1 warmup + 8 timed steps, random weights (seed 0).
+MOE_WL = {
+    "preset": "moe-small", "steps": 8, "batch_size": 16, "seq_len": 512,
+    "attn": "flash", "remat": "full", "lr": 3e-4, "data": "fixed",
+}
+# Kernel launches per layer and step on each training path (the counters
+# of COUNTERS; the rest must stay 0): save_mid (gqa-2048) and full remat
+# (moe-small) both run the attention forward twice. The MoE layer's
+# forward is two K5 (gate, up) and one K6 (down, gate weights as row
+# scale); its backward three K5 on w^T (dx of gate and up, and the down
+# product's unscaled t), two K7a and one K7b; full remat runs the forward
+# again: K5 7, K6 2, K7a 2, K7b 1.
+DENSE_PER_LAYER = {"flash_fwd_launches": 2, "flash_bwd_dq_launches": 1,
+                   "flash_bwd_dkv_launches": 1}
+MOE_PER_LAYER = {**DENSE_PER_LAYER, "gmm_fwd_launches": 7, "gmm_fwd_scaled_launches": 2,
+                 "gmm_dw_launches": 2, "gmm_dw_scaled_launches": 1}
 # f32 kernel vs f32 plain version on the same inputs: only the order of
 # the sums differs, which moves results by a few f32 ulps of O(1) values.
 KERNEL_ATOL = 1e-5
@@ -145,6 +200,39 @@ PARITY_GRAD_REL = 1e-3
 # moves each attention output by ~2^-9 relative; the loss (~10.4) moves
 # by ~1e-3 through two layers and three updates. Limit 2e-2 (0.2%).
 PARITY_BF16_LOSS_ATOL = 2e-2
+# The first of those steps runs both sides from the same params, so only
+# the kernels' rounding differs (~1e-4 of the loss): limit 2e-3 there. In
+# moe_parity the later steps also route some tokens to other experts on
+# the two sides: the bf16 router logits of near-tied experts flip after
+# one update of slightly different params, and each flipped choice moves
+# the mean loss over 512 tokens by up to ~1e-3. On an H100 (700 W)
+# moe_parity measured 0.019 at step 3, just inside the dense limit above,
+# with step 1 at 9e-5; limit 5e-2 (0.6% of the loss) for its later
+# steps.
+PARITY_BF16_FIRST_STEP_ATOL = 2e-3
+PARITY_MOE_BF16_LOSS_ATOL = 5e-2
+# Grouped-matmul kernels vs their plain versions (f32 arithmetic on the
+# same inputs), element by element: |kernel - plain| <= RTOL |plain| +
+# RMS_ATOL rms(plain), the rms over an output row (y, dx) or over an
+# expert's whole dw, so an all-zero sentinel row or an expert without
+# tokens must come out exactly zero. f32 runs on split bf16 operands
+# (~2^-17 relative a product, lo.lo dropped) with each 16-deep partial
+# summed apart: over up to 3072-deep sums of random-sign terms the error
+# is ~1e-5 of the rms, with tails to a few times that; limit 2^-12 of the
+# rms plus 2^-16 of the value. bf16: y and dx are rounded to bf16 once
+# (2^-9 relative), and K7b rounds s * x to bf16 before its products, which
+# leaves ~2^-9 of the rms per dw element with tails to a few times that;
+# limit 2^-7 of the value plus 2^-6 of the rms, as for the flash kernels.
+# A planted fault (a block of one expert skipped or computed with the
+# wrong weights) moves its outputs by O(1) of the rms.
+GMM_F32_RTOL = 2.0**-16
+GMM_F32_RMS_ATOL = 2.0**-12
+GMM_BF16_RTOL = 2.0**-7
+GMM_BF16_RMS_ATOL = 2.0**-6
+# moe_parity's f32 MoE metrics card vs CPU (lb and z losses, entropy,
+# all O(1)): the same routing and sums in other orders, ~1e-6; a flipped
+# token choice moves lb by ~1e-3. Limit 1e-4.
+PARITY_MOE_METRIC_ATOL = 1e-4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32
 # (non-tensor-core) and bf16 (tensor-core, dense) operations/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -173,17 +261,21 @@ def check(cond: bool, what: str) -> None:
 # launch counts
 # ---------------------------------------------------------------------------
 
-COUNTERS = ("decode_launches", "flash_fwd_launches", "flash_bwd_dq_launches",
-            "flash_bwd_dkv_launches")
+# every kernel's launch counter -> its wrapper module
+COUNTERS = {
+    "decode_launches": fa, "flash_fwd_launches": fa, "flash_bwd_dq_launches": fa,
+    "flash_bwd_dkv_launches": fa, "gmm_fwd_launches": gm, "gmm_fwd_scaled_launches": gm,
+    "gmm_dw_launches": gm, "gmm_dw_scaled_launches": gm,
+}
 
 
 def reset_counts() -> None:
-    for name in COUNTERS:
-        setattr(fa, name, 0)
+    for name, module in COUNTERS.items():
+        setattr(module, name, 0)
 
 
 def read_counts() -> dict:
-    return {name: getattr(fa, name) for name in COUNTERS}
+    return {name: getattr(module, name) for name, module in COUNTERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -637,19 +729,27 @@ def phase_kernel_timing(cfg):
 # ---------------------------------------------------------------------------
 
 
-def phase_flash_check(dev, shapes=((16, 4, 128), (16, 16, 128)), ts=(128, 200, 2048)):
-    """K1-K3 against their plain versions on the card: gqa-2048's heads
-    (16 query / 4 kv, d 128) and MHA, causal and not, t on and off the
-    tile grid, f32 and bf16, a nonzero lse cotangent."""
+# (h, h_kv, d, ts, causal modes) of flash_check: gqa-2048's heads and MHA
+# on and off the tile grid, and moe-small's (d 64) at its t and at 2048
+FLASH_CHECK_CASES = (
+    (16, 4, 128, (128, 200, 2048), (True, False)),
+    (16, 16, 128, (128, 200, 2048), (True, False)),
+    (12, 12, 64, (512, 2048), (True,)),
+)
+
+
+def phase_flash_check(dev, cases_spec=FLASH_CHECK_CASES):
+    """K1-K3 against their plain versions on the card (FLASH_CHECK_CASES),
+    f32 and bf16, a nonzero lse cotangent."""
     rng = np.random.RandomState(2)
     worst = {dt: {k: 0.0 for k in FLASH_KINDS} for dt in ("f32", "bf16")}
     ratio = {dt: {x: 0.0 for parts in FLASH_KINDS.values() for x in parts}
              for dt in ("f32", "bf16")}
     cases = 0
-    for h, h_kv, d in shapes:
+    for h, h_kv, d, ts, causals in cases_spec:
         for t in ts:
             b = 1 if t >= 2048 else 2
-            for causal in (True, False):
+            for causal in causals:
                 for dtype in (torch.float32, torch.bfloat16):
                     errs = compare_flash(*flash_case(rng, b, t, h, h_kv, d, dtype, dev), causal)
                     name = f"h{h}/kv{h_kv} d{d} t{t} causal={causal} {dtype}"
@@ -661,6 +761,8 @@ def phase_flash_check(dev, shapes=((16, 4, 128), (16, 16, 128)), ts=(128, 200, 2
                         ratio[key][x] = max(ratio[key][x], r)
                     cases += 1
     emit({"phase": "flash_check", "cases": cases,
+          "shapes": [{"h": h, "h_kv": h_kv, "d": d, "t": list(ts), "causal": list(c)}
+                     for h, h_kv, d, ts, c in cases_spec],
           "limits": {"f32_atol": FLASH_F32_ATOL, "lse_atol": FLASH_LSE_ATOL,
                      "bf16_rtol": FLASH_BF16_RTOL, "bf16_row_rms_atol": FLASH_BF16_ROW_ATOL},
           "max_abs_err": worst, "worst_err_over_limit": ratio})
@@ -692,11 +794,25 @@ FLASH_KINDS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
 FLASH_ENTRY = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
 
 
-def build_plants(names=tuple(FLASH_PLANTS)):
-    """Copies of the flash sources, each with one planted fault, built
-    together into build/torch_kernels/plant/ (named by a hash of the
-    faulty source, so a second call reuses them). Returns name -> CDLL."""
-    import ctypes
+# The same for the grouped-matmul source (phase gmm_plant).
+GMM_PLANTS = {
+    # a sentinel block computes expert 0's product instead of writing zeros
+    "sentinel_computed": ("gmm", "grouped_matmul.cu", "const int e = be[m0 / block_rows];",
+                          "const int e = max(be[m0 / block_rows], 0);"),
+    # the dw walk skips the last block of every expert that has several
+    "dw_skips_last_block": ("gmm", "grouped_matmul.cu", "const int steps = nblocks[e] * spb;",
+                            "const int steps = (nblocks[e] > 1 ? nblocks[e] - 1 : nblocks[e]) "
+                            "* spb;"),
+    # the forward reads the weights of the neighbouring expert (e xor 1)
+    "weight_of_neighbour": ("gmm", "grouped_matmul.cu", "const T* we = w + (size_t)e * K * N;",
+                            "const T* we = w + (size_t)(e ^ 1) * K * N;"),
+}
+
+
+def plant_jobs(names, plants):
+    """(compile jobs for the plant libraries not built yet, name -> library
+    path): copies of the sources, each with one planted fault, under
+    build/torch_kernels/plant/, named by a hash of the faulty source."""
     import hashlib
     import shutil
 
@@ -706,7 +822,7 @@ def build_plants(names=tuple(FLASH_PLANTS)):
         shutil.copyfile(header, out / header.name)
     jobs, libs = {}, {}
     for name in names:
-        _, src, line, fault = FLASH_PLANTS[name]
+        _, src, line, fault = plants[name]
         text = (_build.CSRC / src).read_text()
         check(text.count(line) == 1, f"plant {name}: the line occurs {text.count(line)} times")
         text = text.replace(line, fault)
@@ -716,8 +832,31 @@ def build_plants(names=tuple(FLASH_PLANTS)):
         if not libs[name].exists():
             (out / f"{name}.cu").write_text(text)
             jobs[name] = (out / f"{name}.cu", libs[name])
+    return jobs, libs
+
+
+def build_plants(names=tuple(FLASH_PLANTS), plants=FLASH_PLANTS):
+    """The plant libraries ``names`` of ``plants``, built together where
+    missing. Returns name -> CDLL."""
+    import ctypes
+
+    jobs, libs = plant_jobs(names, plants)
     _build.compile_sources(jobs)
     return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}
+
+
+def build_all():
+    """Every kernel library and every plant library, one nvcc per source,
+    all started together."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for n in _build.KERNELS:
+        lib = _build._lib_path(n)
+        if not lib.exists():
+            jobs[n] = (_build.CSRC / f"{n}.cu", lib)
+    for plants in (FLASH_PLANTS, GMM_PLANTS):
+        jobs.update(plant_jobs(tuple(plants), plants)[0])
+    _build.build_log.update(_build.compile_sources(jobs))
 
 
 @contextlib.contextmanager
@@ -758,11 +897,12 @@ def phase_flash_plant(dev, t=2048):
 # ---------------------------------------------------------------------------
 
 
-def phase_train(smi, wl=TRAIN_WL, dev="cuda"):
-    """gqa-2048 at full width and depth through run_lm: one warmup and
-    wl["steps"] timed steps. Every step launches the flash forward 2·L
-    times (save_mid recomputes the attention half in the backward) and
-    each backward kernel L times; the loss stays finite and falls."""
+def phase_train(smi, wl=TRAIN_WL, dev="cuda", per_layer=DENSE_PER_LAYER, phase="train"):
+    """A training job at full width and depth through run_lm: one warmup
+    and wl["steps"] timed steps. Every step launches each kernel exactly
+    per_layer[counter] x L times (the other counters stay 0); the loss
+    stays finite and falls. For an MoE model, the router health line of
+    the workload after the counts are read."""
     on_card = torch.device(dev).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -774,22 +914,23 @@ def phase_train(smi, wl=TRAIN_WL, dev="cuda"):
     wall = time.perf_counter() - t0
     counts = read_counts()
     L, n = run.cfg.n_layers, len(run.losses)
-    want = {"decode_launches": 0, "flash_fwd_launches": 2 * L * n,
-            "flash_bwd_dq_launches": L * n, "flash_bwd_dkv_launches": L * n}
-    check(counts == want, f"train launches {counts} != {want}")
+    want = {name: per_layer.get(name, 0) * L * n for name in COUNTERS}
+    check(counts == want, f"{phase} launches {counts} != {want}")
     check(all(np.isfinite(run.losses)), f"non-finite loss: {run.losses}")
     check(run.losses[-1] < run.losses[0], f"loss did not fall: {run.losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    router = router_metrics(run)
     emit({
-        "phase": "train", "preset": wl["preset"], "n_layers": L, "d_model": run.cfg.d_model,
-        "params": run.cfg.n_params(), "batch": wl["batch_size"], "seq": wl["seq_len"],
+        "phase": phase, "preset": wl["preset"], "n_layers": L, "d_model": run.cfg.d_model,
+        "params": run.cfg.n_params(), "active_params": run.cfg.n_active_params(),
+        "batch": wl["batch_size"], "seq": wl["seq_len"],
         "attn": wl["attn"], "remat": wl["remat"], "dtype": str(run.cfg.dtype),
         "steps": n, "timed_steps": run.timed, "losses": run.losses,
         "launches": counts, "launches_per_step": {k: v / n for k, v in counts.items()},
         "step_ms": run.step_s * 1e3, "tokens_per_s": run.tokens_per_s,
         "model_flops_exact": run.flops_exact, "model_flops_6nd": run.flops_6nd,
         "mfu_exact": run.mfu(run.flops_exact), "mfu_6nd": run.mfu(run.flops_6nd),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
-        "run_lm_wall_s": wall, "card": smi,
+        "peak_mem_gb": peak_gb, "run_lm_wall_s": wall, "router": router, "card": smi,
     })
     return run, counts
 
@@ -797,7 +938,7 @@ def phase_train(smi, wl=TRAIN_WL, dev="cuda"):
 def kernel_category(name: str) -> str:
     """A device item's family, read from its name."""
     n = name.lower()
-    for cat, marks in (("flash kernels", ("flash::",)),
+    for cat, marks in (("flash kernels", ("flash::",)), ("grouped-matmul kernels", ("gmm::",)),
                        ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
                        ("reduction", ("reduce",)), ("copy/cast", ("copy", "memcpy")),
                        ("fill", ("fill", "memset")), ("elementwise", ("elementwise",))):
@@ -806,10 +947,11 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def phase_train_breakdown(run, smi, iters=2):
-    """Training steps of phase ``train`` on the host clock and under
-    torch.profiler: device busy time per step, idle share, top kernels and
-    the three flash kernels' share."""
+def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown"):
+    """Training steps of a train phase's run on the host clock and under
+    torch.profiler: device busy time per step, idle share, top kernels, the
+    three flash kernels' share and the grouped-matmul kernels' (forward
+    and dw)."""
     holder = {"state": run.state}
 
     def step():
@@ -826,15 +968,20 @@ def phase_train_breakdown(run, smi, iters=2):
     busy_ms = sum(r[2] for r in rows) / iters or None
     flash = {kind: sum(t for k, _, t in rows if "flash::" in k and f"{kind}_" in k) / iters
              for kind in ("fwd", "dq", "dkv")}
+    gmm_ms = {kind: sum(t for k, _, t in rows if "gmm::" in k and f"{kind}_kernel" in k) / iters
+              for kind in ("fwd", "dw")}
     by_category = {}
     for k, _, t in rows:
         by_category[kernel_category(k)] = by_category.get(kernel_category(k), 0.0) + t / iters
     emit({
-        "phase": "train_breakdown", "steps": iters, "wall_ms_per_step": wall_ms,
+        "phase": phase, "steps": iters, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "device_items_per_step": sum(c for _, c, _ in rows) / iters,
         "flash_ms_per_step": flash,
         "flash_share_of_busy": sum(flash.values()) / busy_ms if busy_ms else None,
+        "gmm_ms_per_step": gmm_ms,
+        "gmm_share_of_busy": sum(gmm_ms.values()) / busy_ms if busy_ms else None,
         "ms_per_step_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"kernel": k[:100], "launches_per_step": c / iters,
                          "ms_per_step": t / iters,
@@ -845,24 +992,28 @@ def phase_train_breakdown(run, smi, iters=2):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Route CUDA tensors of flash_attention to the plain versions (the
-    Function looks its kernels up by module attribute at call time)."""
-    saved = fa.flash_fwd_kernel, fa.flash_bwd_kernel
+def plain_kernels():
+    """Route CUDA tensors of flash_attention and gmm to the plain versions
+    (the Functions look their kernels up by module attribute at call
+    time)."""
+    saved = fa.flash_fwd_kernel, fa.flash_bwd_kernel, gm.gmm_fwd_kernel, gm.gmm_dw_kernel
     fa.flash_fwd_kernel, fa.flash_bwd_kernel = fa.flash_fwd_reference, fa.flash_bwd_reference
+    gm.gmm_fwd_kernel, gm.gmm_dw_kernel = gm.gmm_fwd_reference, gm.gmm_dw_reference
     try:
         yield
     finally:
-        fa.flash_fwd_kernel, fa.flash_bwd_kernel = saved
+        fa.flash_fwd_kernel, fa.flash_bwd_kernel, gm.gmm_fwd_kernel, gm.gmm_dw_kernel = saved
 
 
-def phase_train_parity(dev, n_layers=2, batch=2, seq=256, steps=3):
-    """The training path at gqa-2048 width, cut to 2 layers and t 256:
-    (1) f32 loss and grads on the card (flash kernels, cuBLAS) against the
-    CPU (plain versions) from the same params and tokens; (2) 3 bf16
-    AdamW steps on the card with the kernels against 3 with the plain
-    versions called directly on the same card tensors."""
-    wl = {**TRAIN_WL, "n_layers": n_layers, "seq_len": seq, "batch_size": batch}
+def phase_train_parity(dev, wl=TRAIN_WL, per_layer=DENSE_PER_LAYER, phase="train_parity",
+                       n_layers=2, batch=2, seq=256, steps=3, bf16_atol=PARITY_BF16_LOSS_ATOL):
+    """A training path at full width, cut to 2 layers and t 256: (1) f32
+    loss, metrics (the MoE router's too) and grads on the card (kernels,
+    cuBLAS) against the CPU (plain versions) from the same params and
+    tokens; (2) 3 bf16 AdamW steps on the card with the kernels (each
+    launched per_layer[counter] x layers x steps times) against 3 with the
+    plain versions called directly on the same card tensors."""
+    wl = {**wl, "n_layers": n_layers, "seq_len": seq, "batch_size": batch}
     cfg16 = preset_from_workload(wl)
     cfg32 = replace(cfg16, dtype=torch.float32)
     params = init_transformer(cfg32, torch.Generator().manual_seed(0), "cpu")
@@ -870,16 +1021,20 @@ def phase_train_parity(dev, n_layers=2, batch=2, seq=256, steps=3):
 
     def loss_and_grads(where):
         p = tree_map(lambda x: x.detach().to(where).requires_grad_(True), params)
-        loss = lm_loss(p, tokens.to(where), cfg32)
+        loss, metrics = lm_loss_and_metrics(p, tokens.to(where), cfg32)
         loss.backward()
-        return float(loss.detach()), tree_map(lambda x: x.grad.cpu(), p)
+        return (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()},
+                tree_map(lambda x: x.grad.cpu(), p))
 
-    card_loss, card_g = loss_and_grads(dev)
+    card_loss, card_m, card_g = loss_and_grads(dev)
     t0 = time.perf_counter()
-    cpu_loss, cpu_g = loss_and_grads("cpu")
+    cpu_loss, cpu_m, cpu_g = loss_and_grads("cpu")
     cpu_s = time.perf_counter() - t0
     loss_err = abs(card_loss - cpu_loss)
     check(loss_err <= PARITY_LOSS_ATOL, f"card vs CPU loss: {card_loss} vs {cpu_loss}")
+    moe_err = {k: abs(card_m[k] - cpu_m[k]) for k in card_m if k.startswith("moe_")}
+    check(all(e <= PARITY_MOE_METRIC_ATOL for e in moe_err.values()),
+          f"card vs CPU MoE metrics: {card_m} vs {cpu_m}")
     grad_rel = {name: float((gc - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
                 for (name, gc), (_, gp) in zip(leaves_with_names(card_g),
                                                leaves_with_names(cpu_g))}
@@ -893,7 +1048,7 @@ def phase_train_parity(dev, n_layers=2, batch=2, seq=256, steps=3):
         state = trainer.state_from_params(tree_map(lambda x: x.clone().to(dev), params))
         reset_counts()
         losses = []
-        with plain_attention() if use_plain else contextlib.nullcontext():
+        with plain_kernels() if use_plain else contextlib.nullcontext():
             for _ in range(steps):
                 state, m = trainer.step(state, tok)
                 losses.append(m["loss"])
@@ -901,19 +1056,24 @@ def phase_train_parity(dev, n_layers=2, batch=2, seq=256, steps=3):
 
     kern, kern_counts = train(False)
     plain, plain_counts = train(True)
-    check(kern_counts["flash_fwd_launches"] == 2 * n_layers * steps
-          and kern_counts["flash_bwd_dkv_launches"] == n_layers * steps,
-          f"kernel run launches {kern_counts}")
+    want = {name: per_layer.get(name, 0) * n_layers * steps for name in COUNTERS}
+    check(kern_counts == want, f"kernel run launches {kern_counts} != {want}")
     check(not any(plain_counts.values()), f"plain run launched kernels: {plain_counts}")
     step_err = max(abs(a - b) for a, b in zip(kern, plain))
-    check(all(np.isfinite(kern)) and step_err <= PARITY_BF16_LOSS_ATOL,
+    first_err = abs(kern[0] - plain[0])
+    check(all(np.isfinite(kern)) and step_err <= bf16_atol
+          and first_err <= PARITY_BF16_FIRST_STEP_ATOL,
           f"bf16 steps, kernels {kern} vs plain {plain}")
-    emit({"phase": "train_parity", "n_layers": n_layers, "batch": batch, "seq": seq,
-          "f32_loss_card": card_loss, "f32_loss_cpu": cpu_loss, "f32_loss_abs_diff": loss_err,
+    emit({"phase": phase, "preset": wl["preset"], "n_layers": n_layers, "batch": batch,
+          "seq": seq, "f32_loss_card": card_loss, "f32_loss_cpu": cpu_loss,
+          "f32_loss_abs_diff": loss_err, "f32_moe_metrics_card": {k: card_m[k] for k in moe_err},
+          "f32_moe_metric_abs_diff": moe_err, "f32_moe_metric_atol": PARITY_MOE_METRIC_ATOL,
           "f32_loss_atol": PARITY_LOSS_ATOL, "f32_grad_rel_diff_max": max(grad_rel.values()),
           "f32_grad_rel_limit": PARITY_GRAD_REL, "f32_grad_rel_diff": grad_rel,
           "bf16_losses_kernels": kern, "bf16_losses_plain": plain,
-          "bf16_loss_max_abs_diff": step_err, "bf16_loss_atol": PARITY_BF16_LOSS_ATOL,
+          "bf16_loss_max_abs_diff": step_err, "bf16_loss_atol": bf16_atol,
+          "bf16_first_step_abs_diff": first_err,
+          "bf16_first_step_atol": PARITY_BF16_FIRST_STEP_ATOL,
           "cpu_seconds": cpu_s})
 
 
@@ -1007,40 +1167,360 @@ def phase_flash_timing(smi, b=6, t=2048, h=16, h_kv=4, d=128, dev="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE training: the grouped-matmul kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def routed_block_map(rng, tokens, n_experts, block_rows, dev, empty=()):
+    """The block map of a top-1 routing of ``tokens`` over ``n_experts``
+    (uniform at random, none to the experts in ``empty``), laid out as
+    _moe_single_gmm lays out its rows. Returns (block_expert int32 [nb],
+    valid [nb * block_rows] bool: the row holds a routed token, not
+    padding, pad_start [E])."""
+    p = np.ones(n_experts)
+    p[list(empty)] = 0.0
+    choice = rng.choice(n_experts, size=tokens, p=p / p.sum())
+    counts = torch.from_numpy(np.bincount(choice, minlength=n_experts)).to(dev)
+    nb = -(-tokens // block_rows) + n_experts
+    be, pad_start = block_layout(counts, block_rows, nb)
+    slot = torch.arange(nb * block_rows, device=dev)
+    e_s = be.long()[slot // block_rows]
+    return be, slot - pad_start[e_s] < counts[e_s], pad_start
+
+
+def gmm_case(gen, be, k, n, n_experts, dtype, dev, block_rows=256, valid=None, scaled=False,
+             empty=()):
+    """Inputs of one grouped-matmul check: x [R, k], w [E, k, n] (the
+    forward's weights; the dx use reads them as w^T), dy [R, n], and for
+    the scaled form row scales in (0, 1). Where ``valid`` marks padding
+    rows, their dy and scales are zeros, as in the model (padding outputs
+    are never gathered back). ``empty``: the experts that get no token."""
+    R = be.numel() * block_rows
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    x, w, dy = draw(R, k), draw(n_experts, k, n, scale=k**-0.5), draw(R, n)
+    s = torch.rand(R, device=dev, generator=gen) if scaled else None
+    if valid is not None:
+        dy = dy * valid[:, None]
+        s = s * valid if scaled else None
+    return {"x": x.to(dtype), "w": w.to(dtype), "dy": dy.to(dtype), "s": s, "be": be,
+            "E": n_experts, "B": block_rows, "empty": tuple(empty)}
+
+
+def gmm_limit(want, dtype, dims):
+    """Elementwise limit on |kernel - plain| (GMM_* above), ``want`` the f32
+    plain result, its rms taken over ``dims``."""
+    rms = want.pow(2).mean(dim=dims, keepdim=True).sqrt()
+    if dtype == torch.float32:
+        return GMM_F32_RTOL * want.abs() + GMM_F32_RMS_ATOL * rms
+    return GMM_BF16_RTOL * want.abs() + GMM_BF16_RMS_ATOL * rms
+
+
+def compare_gmm(c):
+    """K5 (or K6 with the case's row scale), K5 on w^T (the dx use) and K7a
+    (or K7b) against their plain versions on the same card tensors, the
+    plain versions in f32. Returns {name: (max abs err, largest err /
+    limit)} for y, dx and dw; an error where the limit is 0 (an all-zero
+    row or expert) counts as infinitely over it."""
+    x, w, dy, s, be, E, B = (c[k] for k in ("x", "w", "dy", "s", "be", "E", "B"))
+    y = gm.gmm_fwd_kernel(x, w, be, s, block_rows=B)
+    dx = gm.gmm_fwd_kernel(dy, w, be, block_rows=B, trans_w=True)
+    dw = gm.gmm_dw_kernel(x, dy, be, E, s, block_rows=B)
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    want = {"y": gm.gmm_fwd_reference(xf, wf, be, s, block_rows=B),
+            "dx": gm.gmm_fwd_reference(dyf, wf, be, block_rows=B, trans_w=True),
+            "dw": gm.gmm_dw_reference(xf, dyf, be, E, s, block_rows=B)}
+    torch.cuda.synchronize()
+    out = {}
+    for name, got, dims in (("y", y, (-1,)), ("dx", dx, (-1,)), ("dw", dw, (1, 2))):
+        check(bool(torch.isfinite(got).all()), f"gmm {name} not finite")
+        err = (got.float() - want[name]).abs()
+        ratio = torch.where(err == 0, 0.0, err / gmm_limit(want[name], x.dtype, dims))
+        out[name] = (float(err.max()), float(ratio.max()))
+    return out
+
+
+def gmm_within(errs) -> bool:
+    return all(ratio <= 1.0 for _, ratio in errs.values())
+
+
+# a map with sentinel blocks, experts 1, 3 and 4 without blocks, and the
+# blocks of experts 0, 2 and 5 interleaved (6 experts, 16 blocks of 256)
+GMM_MIXED_MAP = (0, -1, 2, 0, 2, -1, 0, 2, 5, 5, -1, 0, 2, 5, 0, -1)
+
+
+def gmm_cases(dev, dtype, full=True):
+    """(name, case) of gmm_check: moe-small's gate/up and down products at
+    10240 rows (8192 tokens, expert 3 without any) and the mixed map at
+    k 264, n 200 (off the 32-deep and 128-wide tile grid), plain and
+    scaled."""
+    rng = np.random.RandomState(9)
+    gen = torch.Generator(dev).manual_seed(9)
+    cases = []
+    if full:
+        be, valid, _ = routed_block_map(rng, 8192, 8, 256, dev, empty=(3,))
+        cases += [
+            ("moe_gate_up", gmm_case(gen, be, 768, 3072, 8, dtype, dev, valid=valid,
+                                     empty=(3,))),
+            ("moe_down", gmm_case(gen, be, 3072, 768, 8, dtype, dev, valid=valid, scaled=True,
+                                  empty=(3,))),
+        ]
+    mixed = torch.tensor(GMM_MIXED_MAP, dtype=torch.int32, device=dev)
+    for scaled in (False, True):
+        cases.append((f"mixed{'_scaled' if scaled else ''}",
+                      gmm_case(gen, mixed, 264, 200, 6, dtype, dev, scaled=scaled,
+                               empty=(1, 3, 4))))
+    return cases
+
+
+def zeros_exact(c) -> dict:
+    """Sentinel rows of y and dx, and the dw of the experts without tokens
+    (without blocks, or owning only padding rows): exactly zero."""
+    be, B = c["be"], c["B"]
+    y = gm.gmm_fwd_kernel(c["x"], c["w"], be, c["s"], block_rows=B)
+    dx = gm.gmm_fwd_kernel(c["dy"], c["w"], be, block_rows=B, trans_w=True)
+    dw = gm.gmm_dw_kernel(c["x"], c["dy"], be, c["E"], c["s"], block_rows=B)
+    rows = (be < 0).repeat_interleave(B)
+    return {"sentinel_rows": int(rows.sum()),
+            "sentinel_zero": bool((y[rows] == 0).all() and (dx[rows] == 0).all()),
+            "experts_without_tokens": list(c["empty"]),
+            "their_dw_zero": bool(all((dw[e] == 0).all() for e in c["empty"]))}
+
+
+def phase_gmm_check(dev, full=True):
+    """K5, K6, K7a, K7b and the dx use against their plain versions on the
+    card (gmm_cases), in bf16 and f32, element by element (gmm_limit);
+    sentinel rows and the dw of experts with no block or no token exactly
+    zero."""
+    worst = {dt: {k: 0.0 for k in ("y", "dx", "dw")} for dt in ("f32", "bf16")}
+    ratio = {dt: {k: 0.0 for k in ("y", "dx", "dw")} for dt in ("f32", "bf16")}
+    by_kernel = {dt: {k: 0.0 for k in ("k5", "k6", "k7a", "k7b")} for dt in ("f32", "bf16")}
+    zeros, n = {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        for name, c in gmm_cases(dev, dtype, full):
+            errs = compare_gmm(c)
+            check(gmm_within(errs), f"gmm kernels vs plain, {name} {dtype}: {errs}")
+            scaled = c["s"] is not None
+            for part, (err, r) in errs.items():
+                worst[key][part] = max(worst[key][part], err)
+                ratio[key][part] = max(ratio[key][part], r)
+            kf, kd = ("k6", "k7b") if scaled else ("k5", "k7a")
+            by_kernel[key][kf] = max(by_kernel[key][kf], errs["y"][0])
+            by_kernel[key]["k5"] = max(by_kernel[key]["k5"], errs["dx"][0])
+            by_kernel[key][kd] = max(by_kernel[key][kd], errs["dw"][0])
+            z = zeros_exact(c)
+            check(z["sentinel_zero"] and z["their_dw_zero"], f"gmm zeros, {name}: {z}")
+            zeros[f"{name}/{key}"] = z
+            n += 1
+    emit({"phase": "gmm_check", "cases": n,
+          "limits": {"f32_rtol": GMM_F32_RTOL, "f32_rms_atol": GMM_F32_RMS_ATOL,
+                     "bf16_rtol": GMM_BF16_RTOL, "bf16_rms_atol": GMM_BF16_RMS_ATOL},
+          "max_abs_err": worst, "worst_err_over_limit": ratio,
+          "max_abs_err_by_kernel": by_kernel, "exact_zeros": zeros})
+    return by_kernel
+
+
+@contextlib.contextmanager
+def gmm_planted(lib):
+    """Route the grouped-matmul wrappers to the planted library."""
+    real = {}
+    for entry in gm.GMM_ENTRIES:
+        gm._gmm_fn(entry)  # bind the real one first, so it can be put back
+        real[entry] = gm._fns[entry]
+        gm._fns[entry] = gm.bind_gmm_entry(lib, entry)
+    try:
+        yield
+    finally:
+        gm._fns.update(real)
+
+
+def phase_gmm_plant(dev):
+    """Each planted fault (GMM_PLANTS) on the mixed map, plain and scaled,
+    bf16 and f32: the check of phase gmm_check must fail on the faulty
+    kernels' own outputs. Launches here are not the main path's."""
+    libs = build_plants(tuple(GMM_PLANTS), GMM_PLANTS)
+    out = {}
+    for name, lib in libs.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = gmm_cases(dev, dtype, full=False)
+            with gmm_planted(lib):
+                errs = [compare_gmm(c) for _, c in cases]
+            worst = max(r for e in errs for _, r in e.values())
+            check(worst > 1.0, f"planted fault {name} ({dtype}) passed the check: {errs}")
+            out[f"{name}/{str(dtype)[6:]}"] = worst
+    emit({"phase": "gmm_plant", "caught": len(out), "worst_err_over_limit": out})
+
+
+# ---------------------------------------------------------------------------
+# MoE training: kernel timing at the moe_train shapes
+# ---------------------------------------------------------------------------
+
+
+def grouped_mm_yardstick(a, b, ends, want, dtype, dims, mm_args):
+    """The library call of gmm_timing: torch._grouped_mm(a, b, offs=ends)
+    where the card's PyTorch has it and it agrees with the plain version
+    (gmm_limit), else one torch.mm of the same FLOPs. Returns (fn, label,
+    max abs err against the plain version or None)."""
+    why = "torch._grouped_mm missing"
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            got = torch._grouped_mm(a, b, offs=ends)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:
+            why = f"torch._grouped_mm refused: {str(exc)[:120]}"
+        else:
+            err = (got.float() - want).abs()
+            if bool((err <= gmm_limit(want, dtype, dims)).all()):
+                return (lambda i: torch._grouped_mm(a, b, offs=ends),
+                        "torch._grouped_mm on the same expert groups", float(err.max()))
+            why = f"torch._grouped_mm disagreed by {float(err.max())}"
+    p, q = mm_args
+    return (lambda i: torch.mm(p, q)), f"torch.mm of the same FLOPs ({why})", None
+
+
+def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
+    """K5, K6, K7a and K7b (and K5's dx use) at the moe_train shapes: b 16
+    x t 512 = 8192 top-1 choices over 8 experts in 256-row blocks (10240
+    rows), gate/up 768 -> 3072 and down 3072 -> 768, bf16; padding rows
+    carry zero cotangents and scales. Beside each: its bound (the larger
+    of 2·rows·k·n operations at 989 TFLOP/s, rows = the non-sentinel rows
+    the kernel computes, and its bytes at 3.35 TB/s, each input read once
+    and each output written once), its plain version and the library
+    yardstick (grouped_mm_yardstick)."""
+    rng = np.random.RandomState(8)
+    gen = torch.Generator(dev).manual_seed(8)
+    be, valid, pad_start = routed_block_map(rng, tokens, E, B, dev)
+    R = be.numel() * B
+    ends = torch.cat([pad_start[1:], torch.tensor([R], device=dev)]).to(torch.int32)
+    bf = torch.bfloat16
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf)
+
+    x, h = draw(R, d), draw(R, f)
+    w_up, w_down = draw(E, d, f, scale=d**-0.5), draw(E, f, d, scale=f**-0.5)
+    dy_up, dy_down = draw(R, f) * valid[:, None], draw(R, d) * valid[:, None]
+    s = torch.rand(R, device=dev, generator=gen) * valid
+    hs = (h.float() * s[:, None]).to(bf)
+    rows = int((be >= 0).sum()) * B
+    e2, e4 = 2, 4
+    specs = {  # name: (kernel, plain, library (a, b), mm args, ops, bytes, out dims)
+        "k5": (lambda i: gm.gmm_fwd_kernel(x, w_up, be, block_rows=B),
+               lambda i: gm.gmm_fwd_reference(x, w_up, be, block_rows=B),
+               (x, w_up), (x, w_up[0]), 2 * rows * d * f,
+               R * d * e2 + E * d * f * e2 + R * f * e2 + be.numel() * 4, (-1,)),
+        "k6": (lambda i: gm.gmm_fwd_kernel(h, w_down, be, s, block_rows=B),
+               lambda i: gm.gmm_fwd_reference(h, w_down, be, s, block_rows=B),
+               (h, w_down), (h, w_down[0]), 2 * rows * f * d,
+               R * f * e2 + E * f * d * e2 + R * e4 + R * d * e2 + be.numel() * 4, (-1,)),
+        "k7a": (lambda i: gm.gmm_dw_kernel(x, dy_up, be, E, block_rows=B),
+                lambda i: gm.gmm_dw_reference(x, dy_up, be, E, block_rows=B),
+                (x.t(), dy_up), (x.t(), dy_up), 2 * rows * d * f,
+                R * d * e2 + R * f * e2 + E * d * f * e4 + be.numel() * 4, (1, 2)),
+        "k7b": (lambda i: gm.gmm_dw_kernel(h, dy_down, be, E, s, block_rows=B),
+                lambda i: gm.gmm_dw_reference(h, dy_down, be, E, s, block_rows=B),
+                (hs.t(), dy_down), (hs.t(), dy_down), 2 * rows * f * d,
+                R * f * e2 + R * d * e2 + R * e4 + E * f * d * e4 + be.numel() * 4, (1, 2)),
+        "k5_dx": (lambda i: gm.gmm_fwd_kernel(dy_up, w_up, be, block_rows=B, trans_w=True),
+                  lambda i: gm.gmm_fwd_reference(dy_up, w_up, be, block_rows=B, trans_w=True),
+                  (dy_up, w_up.transpose(1, 2)), (dy_up, w_up[0].t()), 2 * rows * f * d,
+                  R * f * e2 + E * d * f * e2 + R * d * e2 + be.numel() * 4, (-1,)),
+    }
+    out = {}
+    for name, (kern, plain, lib_ab, mm_args, ops, nbytes, dims) in specs.items():
+        got, want = kern(0), plain(0).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        check(bool((err <= gmm_limit(want, bf, dims)).all()),
+              f"{name} at the moe_train shape: max abs err {float(err.max())}")
+        if name == "k6":  # the library call leaves the row scale out (same FLOPs)
+            want = gm.gmm_fwd_reference(h, w_down, be, block_rows=B).float()
+        lib, label, lib_err = grouped_mm_yardstick(*lib_ab, ends, want, bf, dims, mm_args)
+        if name == "k6":
+            label += ", without the row scale"
+        del got, want
+        ms, source, runs = timed_in_turns(
+            [("kernel", kern), ("plain", plain), ("library", lib)],
+            {"kernel": 20, "plain": 3, "library": 20})
+        ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {
+            "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+            "library": label, "library_max_abs_err": lib_err,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "tflops": ops / ms["kernel"] / 1e9, "max_abs_err": float(err.max()),
+            "ms_source": source, "runs": runs,
+        }
+    emit({"phase": "gmm_timing", "shape": {"tokens": tokens, "experts": E, "block_rows": B,
+                                           "rows": R, "computed_rows": rows, "d": d, "f": f,
+                                           "dtype": "bfloat16"},
+          "card": smi, **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     smi = nvidia_smi()
-    t0 = time.perf_counter()
-    _build.build()
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for _, out in _build.build_log.values()
+    phase_s = {}
+
+    def run_phase(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    run_phase("build", build_all)
+    ptxas = [f"{name}: {ln.strip()}" for name, (_, out) in _build.build_log.items()
+             if name in _build.KERNELS
              for ln in out.splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "device", "card": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kernel_build_s": build_s, "ptxas": ptxas})
+          "cuda": torch.version.cuda, "kernel_build_s": phase_s["build"],
+          "builds_s": {name: secs for name, (secs, _) in _build.build_log.items()},
+          "ptxas": ptxas})
 
     # serving path
-    check_err = phase_kernel_check(dev)
-    engine, res, launches = phase_serve(smi)
-    phase_whole_path(engine)
-    phase_breakdown(engine, smi)
+    check_err = run_phase("kernel_check", phase_kernel_check, dev)
+    engine, res, launches = run_phase("serve", phase_serve, smi)
+    run_phase("whole_path", phase_whole_path, engine)
+    run_phase("breakdown", phase_breakdown, engine, smi)
     cfg = engine.cfg
     del engine, res
     torch.cuda.empty_cache()
-    timing = phase_kernel_timing(cfg)
+    timing = run_phase("kernel_timing", phase_kernel_timing, cfg)
 
-    # training path
-    flash_err = phase_flash_check(dev)
-    phase_flash_plant(dev)
-    run, train_counts = phase_train(smi)
-    phase_train_breakdown(run, smi)
+    # training path: gqa-2048
+    flash_err = run_phase("flash_check", phase_flash_check, dev)
+    run_phase("flash_plant", phase_flash_plant, dev)
+    run, train_counts = run_phase("train", phase_train, smi)
+    run_phase("train_breakdown", phase_train_breakdown, run, smi)
     del run
     torch.cuda.empty_cache()
-    phase_train_parity(dev)
-    ft = phase_flash_timing(smi)
+    run_phase("train_parity", phase_train_parity, dev)
+    ft = run_phase("flash_timing", phase_flash_timing, smi)
+
+    # MoE training path: moe-small
+    gmm_err = run_phase("gmm_check", phase_gmm_check, dev)
+    run_phase("gmm_plant", phase_gmm_plant, dev)
+    torch.cuda.empty_cache()
+    moe_run, moe_counts = run_phase("moe_train", phase_train, smi, MOE_WL,
+                                    per_layer=MOE_PER_LAYER, phase="moe_train")
+    run_phase("moe_train_breakdown", phase_train_breakdown, moe_run, smi,
+              phase="moe_train_breakdown")
+    del moe_run
+    torch.cuda.empty_cache()
+    run_phase("moe_parity", phase_train_parity, dev, MOE_WL, per_layer=MOE_PER_LAYER,
+              phase="moe_parity", bf16_atol=PARITY_MOE_BF16_LOSS_ATOL)
+    gt = run_phase("gmm_timing", phase_gmm_timing, smi)
 
     kernels = [{
         "name": "paged_decode", "route": "cuda",
@@ -1074,6 +1554,26 @@ def main() -> int:
             # no library call computes dq (or dk, dv) alone; SDPA's backward
             # computes all three in one call, timed here as a yardstick
             kernels[-1]["library_bwd_all_ms"] = ft["library_bwd_all_ms"]
+    for key, name, line, counter in (
+            ("k5", "gmm_fwd", 122, "gmm_fwd_launches"),
+            ("k6", "gmm_fwd_scaled", 144, "gmm_fwd_scaled_launches"),
+            ("k7a", "gmm_dw", 222, "gmm_dw_launches"),
+            ("k7b", "gmm_dw_scaled", 244, "gmm_dw_scaled_launches")):
+        t = gt[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tf_operator_tpu_torch/ops/csrc/grouped_matmul.cu",
+            "replaces": f"tf_operator_tpu/ops/grouped_matmul.py:{line}",
+            "launches": moe_counts[counter],
+            # bf16 (the path's type) against the f32 plain version on the same
+            # inputs, over every gmm_check case and the moe_train shape; the
+            # f32 instantiation's error beside it
+            "max_abs_err": max(gmm_err["bf16"][key], t["max_abs_err"]),
+            "max_abs_err_f32": gmm_err["f32"][key],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
+        })
+    emit({"phase": "wall", "total_s": time.perf_counter() - t_start, "phase_s": phase_s})
     emit({"kernels": kernels})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

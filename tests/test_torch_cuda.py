@@ -12,15 +12,23 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     FLASH_PLANTS,
+    GMM_MIXED_MAP,
+    GMM_PLANTS,
     build_plants,
     compare_flash,
+    compare_gmm,
     flash_case,
     flash_within,
+    gmm_case,
+    gmm_limit,
+    gmm_planted,
+    gmm_within,
     paged_case,
     planted,
 )
 from tf_operator_tpu_torch.models.transformer import init_transformer, preset  # noqa: E402
 from tf_operator_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from tf_operator_tpu_torch.ops import grouped_matmul as gm  # noqa: E402
 from tf_operator_tpu_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
 from tf_operator_tpu_torch.workloads.serve import synthesize_requests  # noqa: E402
 
@@ -152,3 +160,83 @@ def test_flash_kernel_refuses_unsupported(dev):
     q, k, v, do, dlse = flash_case(rng, 1, 32, 4, 2, 256, torch.float32, dev)
     with pytest.raises(ValueError, match="register tiles"):
         fa.flash_attention(q, k, v, causal=True)
+
+
+def _mixed_case(dev, dtype, scaled, seed=31, k=264, n=200):
+    """Sentinel blocks, experts 1, 3 and 4 without blocks, interleaved
+    blocks of experts 0, 2 and 5, widths off the tile grid."""
+    be = torch.tensor(GMM_MIXED_MAP, dtype=torch.int32, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    return gmm_case(gen, be, k, n, 6, dtype, dev, scaled=scaled, empty=(1, 3, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "row_scale"])
+@pytest.mark.parametrize("k,n", [(264, 200), (128, 384)])
+def test_gmm_kernels_match_plain(dev, dtype, scaled, k, n):
+    """K5 or K6, K5 on w^T and K7a or K7b against their plain versions on
+    ragged and sentinel block maps; sentinel rows and the dw of experts
+    without blocks exactly zero; each kernel launched as counted."""
+    c = _mixed_case(dev, dtype, scaled, k=k, n=n)
+    before = (gm.gmm_fwd_launches, gm.gmm_fwd_scaled_launches, gm.gmm_dw_launches,
+              gm.gmm_dw_scaled_launches)
+    errs = compare_gmm(c)
+    after = (gm.gmm_fwd_launches, gm.gmm_fwd_scaled_launches, gm.gmm_dw_launches,
+             gm.gmm_dw_scaled_launches)
+    # (K5, K6, K7a, K7b): y, dx on w^T, dw
+    want = (1, 1, 0, 1) if scaled else (2, 0, 1, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    assert gmm_within(errs), errs
+    y = gm.gmm_fwd_kernel(c["x"], c["w"], c["be"], c["s"], block_rows=256)
+    dw = gm.gmm_dw_kernel(c["x"], c["dy"], c["be"], 6, c["s"], block_rows=256)
+    rows = (c["be"] < 0).repeat_interleave(256)
+    assert bool((y[rows] == 0).all())
+    assert all(bool((dw[e] == 0).all()) for e in (1, 3, 4))
+
+
+@pytest.mark.parametrize("name", sorted(GMM_PLANTS))
+def test_gmm_check_fails_on_planted_fault(dev, name):
+    """A copy of the grouped-matmul source with one planted fault (a
+    sentinel block computed, a dw walk short of its last block, the
+    neighbouring expert's weights) fails the check the real kernels
+    pass, in both types."""
+    lib = build_plants([name], GMM_PLANTS)[name]
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [_mixed_case(dev, dtype, scaled) for scaled in (False, True)]
+        assert all(gmm_within(compare_gmm(c)) for c in cases)
+        with gmm_planted(lib):
+            errs = [compare_gmm(c) for c in cases]
+        assert not all(gmm_within(e) for e in errs), (name, dtype, errs)
+
+
+def test_gmm_autograd_on_card(dev):
+    """The public gmm on CUDA tensors: value and grads (x, w, row_scale)
+    equal the plain versions' on the CPU, f32, within gmm_check's f32
+    limit (rms over each row of y and dx, each expert's dw, all of ds)."""
+    rng = np.random.RandomState(32)
+    be = torch.tensor([0, -1, 2, 0], dtype=torch.int32)
+    x = torch.from_numpy(rng.randn(512, 64).astype(np.float32))
+    w = torch.from_numpy((rng.randn(3, 64, 96) / 8).astype(np.float32))
+    s = torch.from_numpy(rng.rand(512).astype(np.float32))
+    g = torch.from_numpy(rng.randn(512, 96).astype(np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        leaves = [a.detach().to(where).requires_grad_(True) for a in (x, w, s)]
+        y = gm.gmm(leaves[0], leaves[1], be.to(where), row_scale=leaves[2], block_rows=128)
+        y.backward(g.to(where))
+        outs[str(where)] = [y.detach().cpu()] + [a.grad.cpu() for a in leaves]
+    for name, got, want, dims in zip(("y", "dx", "dw", "ds"), outs[str(dev)], outs["cpu"],
+                                     ((-1,), (-1,), (1, 2), (0,))):
+        err = (got - want).abs()
+        assert bool((err <= gmm_limit(want, torch.float32, dims)).all()), (name, float(err.max()))
+
+
+def test_gmm_kernel_refuses_unsupported(dev):
+    x = torch.zeros(256, 64, device=dev, dtype=torch.float16)
+    w = torch.zeros(2, 64, 64, device=dev, dtype=torch.float16)
+    be = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        gm.gmm(x, w, be, block_rows=128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        gm.gmm(x.float(), w.float(), torch.zeros(4, dtype=torch.int32, device=dev),
+               block_rows=64)

@@ -3,15 +3,17 @@
 Port of ``tf_operator_tpu/models/transformer.py``: the config and its
 presets (same numbers), parameter init (same tree, keys, stacked
 ``[L, ...]`` shapes and distributions), RMSNorm and rotary embeddings,
-the dense decoder layer with ``dense`` or ``flash`` attention, the remat
-modes none, full and ``save_mid`` (``torch.utils.checkpoint``), the
-forward and the causal LM loss, fused or not. Master params stay f32 and
-are cast to ``cfg.dtype`` inside the layer, as in the JAX package.
+the decoder layer with ``dense`` or ``flash`` attention and a dense
+SwiGLU or a top-k MoE MLP (``moe_dispatch="gmm"``, parallel/moe.py),
+the remat modes none, full and ``save_mid`` (``torch.utils.checkpoint``),
+the forward and the causal LM loss, fused or not, with the MoE router
+losses and telemetry. Master params stay f32 and are cast to
+``cfg.dtype`` inside the layer, as in the JAX package.
 
-Not ported yet, and raising where asked for: MoE layers (ROADMAP M11),
-ring and Ulysses attention (M12), meshes and sharding (M8), pipeline
-parallelism (M13), the other named remat policies and ``dots`` (M2), and
-the bidirectional MLM loss (M2).
+Not ported yet, and raising where asked for: the other MoE dispatches
+(ROADMAP M11), ring and Ulysses attention (M12), meshes and sharding
+(M8), pipeline parallelism (M13), the other named remat policies and
+``dots`` (M2), and the bidirectional MLM loss (M2).
 
 Init draws from an explicit ``torch.Generator``; it cannot reproduce
 ``jax.random``'s bits, so parity tests convert the JAX package's params
@@ -295,18 +297,45 @@ def _attn_block(x, lp, cfg: TransformerConfig):
     return x + attn @ lp["wo"].to(x.dtype)
 
 
+def _moe_mlp(h, lp, cfg: TransformerConfig):
+    """Top-k expert MLP without a mesh: the router product in the
+    activation dtype, then parallel/moe.py's dispatch. Returns (out, aux):
+    aux holds the UNWEIGHTED router losses (the loss head weighs them) and
+    telemetry: the Switch load-balance loss E·Σ load·mean_gate (load comes
+    from the discrete assignment and carries no gradient), the ST-MoE
+    z-loss mean(logsumexp(f32 logits)²), expert_load [E] and drop_frac."""
+    from tf_operator_tpu_torch.parallel.moe import moe_apply
+
+    b, t, d = h.shape
+    flat = h.reshape(b * t, d)
+    gate_logits = flat @ lp["w_router"].to(h.dtype)
+    experts = {k: lp[k] for k in ("w_gate", "w_up", "w_down")}
+    out, stats = moe_apply(
+        flat, gate_logits, experts, None, None, axis_name=cfg.ep_axis,
+        capacity_factor=cfg.capacity_factor, dropped="zero", k_top=cfg.moe_top_k,
+        return_stats=True, dispatch_impl=cfg.moe_dispatch)
+    lb_loss = cfg.n_experts * (stats["expert_load"] * stats["mean_gate"]).sum()
+    z = torch.logsumexp(gate_logits.float(), dim=-1)
+    aux = {"lb_loss": lb_loss, "z_loss": z.square().mean(),
+           "expert_load": stats["expert_load"], "drop_frac": stats["drop_frac"]}
+    return out.reshape(b, t, d), aux
+
+
 def _mlp_block(x, lp, cfg: TransformerConfig):
-    """``resid_mid`` -> layer output (x + SwiGLU MLP), the second half."""
+    """``resid_mid`` -> (layer output, aux): x + the SwiGLU MLP (aux None),
+    or x + the MoE MLP (aux as _moe_mlp's). The second half of _layer."""
     h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts:
+        out, aux = _moe_mlp(h, lp, cfg)
+        return x + out, aux
     z_gate = h @ lp["w_gate"].to(x.dtype)
     up = h @ lp["w_up"].to(x.dtype)
-    return x + (F.silu(z_gate) * up) @ lp["w_down"].to(x.dtype)
+    return x + (F.silu(z_gate) * up) @ lp["w_down"].to(x.dtype), None
 
 
 def _layer(x, lp, cfg: TransformerConfig):
-    """One dense decoder layer (pre-norm attention, then pre-norm SwiGLU)."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP M11)")
+    """One decoder layer (pre-norm attention, then the pre-norm MLP):
+    (x, aux), aux None for a dense layer."""
     return _mlp_block(_attn_block(x, lp, cfg), lp, cfg)
 
 
@@ -350,11 +379,12 @@ def remat_save_names(remat) -> Optional[tuple]:
 
 
 def _remat_wrap(cfg: TransformerConfig):
-    """layer(x, lp) under cfg.remat. ``full`` saves only the layer input
-    and recomputes the layer in the backward; ``save_mid`` saves the layer
-    input and ``resid_mid``, i.e. two checkpointed regions split there, so
-    the backward recomputes the attention half from x and the MLP half
-    from resid_mid (and the flash forward runs again, as in JAX)."""
+    """layer(x, lp) -> (x, aux) under cfg.remat. ``full`` saves only the
+    layer input and recomputes the layer in the backward; ``save_mid``
+    saves the layer input and ``resid_mid``, i.e. two checkpointed regions
+    split there, so the backward recomputes the attention half from x and
+    the MLP half from resid_mid (and the flash forward runs again, as in
+    JAX). The MoE aux leaves are outputs of the checkpointed regions."""
     remat = cfg.remat
     if remat in (True, "full"):
         return lambda x, lp: checkpoint(_layer, x, lp, cfg, use_reentrant=False)
@@ -363,8 +393,6 @@ def _remat_wrap(cfg: TransformerConfig):
     names = remat_save_names(remat)
     if names == ("resid_mid",):
         def save_mid(x, lp):
-            if cfg.n_experts:
-                raise NotImplementedError("MoE layers are not ported yet (ROADMAP M11)")
             mid = checkpoint(_attn_block, x, lp, cfg, use_reentrant=False)
             return checkpoint(_mlp_block, mid, lp, cfg, use_reentrant=False)
         return save_mid
@@ -380,15 +408,21 @@ def _check_supported(cfg: TransformerConfig, mesh) -> None:
         raise NotImplementedError("meshes and sharding are not ported yet (ROADMAP M8)")
     if cfg.pp_microbatches:
         raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP M13)")
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP M11)")
+    if cfg.n_experts and cfg.moe_dispatch != "gmm":
+        raise NotImplementedError(
+            f"moe_dispatch={cfg.moe_dispatch!r} is not ported yet (ROADMAP M11: the "
+            "port runs 'gmm')")
 
 
-def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None):
-    """tokens: [b, t] int -> final-norm hidden states [b, t, d] (cfg.dtype).
-    A Python loop over the stacked [L, ...] layer leaves. The embedding row
-    is gathered in f32 and then cast (the same values as JAX's gather from
-    the cast table), so its gradient accumulates in f32."""
+def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None,
+                       with_aux: bool = False):
+    """tokens: [b, t] int -> final-norm hidden states [b, t, d] (cfg.dtype),
+    or (h, aux) with ``with_aux``: for MoE configs the per-layer router
+    losses averaged over layers, expert_load [L, E] and drop_frac [L];
+    None for dense ones. A Python loop over the stacked [L, ...] layer
+    leaves. The embedding row is gathered in f32 and then cast (the same
+    values as JAX's gather from the cast table), so its gradient
+    accumulates in f32."""
     _check_supported(cfg, mesh)
     layer_fn = _remat_wrap(cfg)
     x = params["embed"][tokens].to(cfg.dtype)
@@ -396,9 +430,21 @@ def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None):
     # where indexing leaf[i] per layer would add a full [L, ...] zero-padded
     # grad into the stack L times
     layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    auxes = []
     for i in range(cfg.n_layers):
-        x = layer_fn(x, {name: leaf[i] for name, leaf in layers.items()})
-    return _rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, aux = layer_fn(x, {name: leaf[i] for name, leaf in layers.items()})
+        auxes.append(aux)
+    h = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if not with_aux:
+        return h
+    if not cfg.n_experts:
+        return h, None
+    return h, {
+        "lb_loss": torch.stack([a["lb_loss"] for a in auxes]).mean(),
+        "z_loss": torch.stack([a["z_loss"] for a in auxes]).mean(),
+        "expert_load": torch.stack([a["expert_load"] for a in auxes]),  # [L, E]
+        "drop_frac": torch.stack([a["drop_frac"] for a in auxes]),  # [L]
+    }
 
 
 def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None):
@@ -408,13 +454,17 @@ def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None):
 
 
 def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None):
-    """Causal next-token cross entropy: (total_loss, {"ce_loss"}). Fused
+    """Causal next-token cross entropy: (total_loss, metrics). Fused
     (ops/fused_cross_entropy.py, no [b, t, vocab] logits in memory) or the
-    unfused log-softmax, the same math."""
+    unfused log-softmax, the same math. For MoE configs the total adds
+    ``moe_aux_weight`` times the load-balance loss and ``moe_zloss_weight``
+    times the z-loss, and metrics carries the router telemetry beside
+    ``ce_loss``: moe_lb_loss, moe_z_loss (unweighted), moe_expert_entropy
+    (mean over layers, nats; uniform routing = ln(E)) and moe_drop_frac."""
     if not cfg.causal:
         raise NotImplementedError(
             "the bidirectional MLM loss is not ported yet (ROADMAP M2)")
-    h = transformer_hidden(params, tokens, cfg, mesh)
+    h, aux = transformer_hidden(params, tokens, cfg, mesh, with_aux=True)
     if cfg.fused_xent:
         from tf_operator_tpu_torch.ops.fused_cross_entropy import fused_cross_entropy
 
@@ -427,9 +477,19 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None):
         logp = torch.log_softmax(logits, dim=-1)
         ll = torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
         ce = -ll.mean()
-    return ce, {"ce_loss": ce}
+    metrics = {"ce_loss": ce}
+    if aux is None:
+        return ce, metrics
+    total = ce + cfg.moe_aux_weight * aux["lb_loss"] + cfg.moe_zloss_weight * aux["z_loss"]
+    load = aux["expert_load"]  # [L, E]
+    p = load / load.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+    entropy = -(p * p.clamp(min=1e-9).log()).sum(dim=-1)  # [L]
+    metrics.update(moe_lb_loss=aux["lb_loss"], moe_z_loss=aux["z_loss"],
+                   moe_expert_entropy=entropy.mean(), moe_drop_frac=aux["drop_frac"].mean())
+    return total, metrics
 
 
 def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None):
-    """Scalar training loss (lm_loss_and_metrics without the metrics)."""
+    """Scalar training loss (lm_loss_and_metrics without the metrics);
+    includes the weighted MoE router losses for MoE configs."""
     return lm_loss_and_metrics(params, tokens, cfg, mesh)[0]

@@ -1,10 +1,15 @@
 """Transformer language-model training workload on the port (operator-launchable).
 
 Port of ``tf_operator_tpu/workloads/lm.py``: trains a transformer preset
-with the single-device Trainer on synthetic tokens and logs tokens/s and
-MFU. The operator launches ``tf_operator_tpu_torch.workloads.lm:main``
-like any entrypoint; ``main`` uses the context only through its
-attributes (``workload``, ``num_processes``, ``mark_first_step``).
+(dense, or MoE with ``moe_dispatch: gmm``) with the single-device Trainer
+on synthetic tokens and logs tokens/s and MFU, counted on the params a
+token touches (``n_active_params``, so top-1 MoE counts one expert). For
+MoE presets it then logs the router health line of the JAX workload
+(expert entropy against uniform, drop fraction, the router losses) on the
+trained params and the ``data: fixed`` batch. The operator launches
+``tf_operator_tpu_torch.workloads.lm:main`` like any entrypoint; ``main``
+uses the context only through its attributes (``workload``,
+``num_processes``, ``mark_first_step``).
 
 Workload keys: the JAX workload's (preset and TransformerConfig overrides
 including ``attn`` and ``remat``, steps, batch_size, seq_len, lr,
@@ -17,12 +22,14 @@ workload:
   uses ``jax.random.randint(PRNGKey(1), ...)``; init draws from a
   ``torch.Generator`` seeded 0 where JAX uses ``PRNGKey(0)``.
 - Not ported yet, and raising: ``data: stream``/``memmap`` (ROADMAP M5),
-  ``checkpoint_dir`` (M6), more than one process (M8), MoE presets (M11).
+  ``checkpoint_dir`` (M6), more than one process (M8), MoE dispatches
+  other than ``gmm`` (M11).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional
@@ -35,6 +42,7 @@ from tf_operator_tpu_torch.models.transformer import (
     TransformerConfig,
     init_transformer,
     lm_loss,
+    lm_loss_and_metrics,
     preset_from_workload,
 )
 from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
@@ -128,6 +136,19 @@ def run_lm(wl: dict, device: DeviceLike = None,
     )
 
 
+def router_metrics(run: LMRun) -> Optional[dict]:
+    """Router health on the trained params and the run's batch: expert
+    entropy (nats; ``uniform`` = ln E), drop fraction and the unweighted
+    router losses, as floats. None for a dense model. One forward pass."""
+    if not run.cfg.n_experts:
+        return None
+    with torch.no_grad():
+        _, m = lm_loss_and_metrics(run.state.params, run.tokens, run.cfg)
+    return {"expert_entropy": float(m["moe_expert_entropy"]),
+            "uniform": math.log(run.cfg.n_experts), "drop_frac": float(m["moe_drop_frac"]),
+            "lb_loss": float(m["moe_lb_loss"]), "z_loss": float(m["moe_z_loss"])}
+
+
 def main(ctx) -> None:
     wl = ctx.workload
     if int(getattr(ctx, "num_processes", 1) or 1) > 1:
@@ -151,6 +172,13 @@ def main(ctx) -> None:
 
     run = run_lm(wl, on_step=on_step)
     preset = wl.get("preset", "tiny")
+    router = router_metrics(run)
+    if router is not None:
+        # collapsed routing (entropy far below ln E) is a silent quality bug:
+        # surface it where operators look first
+        log.info("moe router: expert_entropy=%.3f (uniform=%.3f) drop_frac=%.3f "
+                 "lb_loss=%.3f z_loss=%.4f", router["expert_entropy"], router["uniform"],
+                 router["drop_frac"], router["lb_loss"], router["z_loss"])
     if run.step_s is None:
         log.info("lm done: preset=%s loss=%.4f (no timed steps remained)", preset, run.loss)
         return
