@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (dense and MoE) on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths (dense, MoE and
+ResNet) on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the checkout's sources, and the
-planted-fault copies of phases 8 and 14, all at once (one ``nvcc`` per
+planted-fault copies of phases 8, 14 and 20, all at once (one ``nvcc`` per
 source), then prints one JSON line per phase. Serving path:
 
 1. ``device``: the card's name and power limit (nvidia-smi) and the
@@ -88,6 +88,38 @@ MoE training path:
     expert groups (or one ``torch.mm`` of the same FLOPs where the card's
     PyTorch lacks it or it disagrees, which the line says).
 
+ResNet training path:
+
+19. ``fls_check``: the fused matmul + BN-statistics kernel (K8) against
+    its plain version, element by element, in bf16 and f32, with and
+    without the prologue: every distinct (M, K, N) of ResNet-50's 1x1
+    convolutions at b 128, 224^2 (15 shapes) and shapes off the tile grid.
+    y within the flash limits; each column's sum within FLS_STATS_C
+    (by dtype) eps_f32 sum|y| and its sum of squares within as many eps_f32
+    of sum y^2.
+20. ``fls_plant``: copies of the K8 source, each with one planted fault
+    (the last row tile left out of the statistics, the statistics taken
+    from the bf16-rounded y, the prologue's ReLU dropped): the check of
+    phase 19 must fail on each by 10x its limit or more.
+21. ``resnet_train``: ResNet-50 at full width and depth (b 128, 224^2,
+    bf16, ``fused_1x1``, SGD momentum 0.9, lr 0.1, "var" statistics
+    gradient, fixed data), one warmup and 8 timed steps through
+    ``run_resnet``: exactly 36 K8 launches a step, finite and falling
+    loss; step time, images/s, MFU and peak memory. Then the same with
+    ``fused_1x1`` off (cuDNN 1x1 convolutions, the plain BN path).
+22. ``resnet_breakdown``: as phase 10, with K8, cuDNN convolutions, the
+    elementwise work and the SGD update as families of their own; then the
+    same for the unfused run (its device time, which the host clock of a
+    shared host does not give).
+23. ``resnet_parity``: ResNet-50 widths at one block a stage, 64^2, b 8:
+    f32 loss, BN state and grads on the card against the CPU with
+    ``fused_1x1`` on and off, and 3 bf16 steps with K8 against 3 with its
+    plain version.
+24. ``fls_timing``: K8 at each distinct shape of phase 21 beside its
+    bound, its plain version, ``torch.mm`` alone (the product without the
+    statistics) and ``torch.mm`` plus the two column reductions (the
+    unfused sequence).
+
 Then a ``wall`` line (seconds per phase), the ``kernels`` line, the
 nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
@@ -110,6 +142,7 @@ import torch
 
 from tf_operator_tpu_torch.compat import tree_map
 from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.models.resnet import ResNetConfig, init_resnet
 from tf_operator_tpu_torch.models.transformer import (
     init_transformer,
     lm_loss,
@@ -118,6 +151,7 @@ from tf_operator_tpu_torch.models.transformer import (
 )
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import fused_linear_stats as fls
 from tf_operator_tpu_torch.ops import grouped_matmul as gm
 from tf_operator_tpu_torch.parallel.moe import block_layout
 from tf_operator_tpu_torch.serve.engine import (
@@ -129,6 +163,7 @@ from tf_operator_tpu_torch.serve.engine import (
 from tf_operator_tpu_torch.serve.kvcache import PagePool, SequencePages, pages_needed
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
 from tf_operator_tpu_torch.workloads.lm import fixed_tokens, router_metrics, run_lm
+from tf_operator_tpu_torch.workloads.resnet import resnet_loss, run_resnet
 from tf_operator_tpu_torch.workloads.serve import _quantile, run_serve, synthesize_requests
 
 SERVE_WL = {
@@ -148,6 +183,11 @@ MOE_WL = {
     "preset": "moe-small", "steps": 8, "batch_size": 16, "seq_len": 512,
     "attn": "flash", "remat": "full", "lr": 3e-4, "data": "fixed",
 }
+# The ResNet-50 training job (examples/resnet50_h100.json) at full width
+# and depth, 1 warmup + 8 timed steps, random weights (seed 0); fused_1x1
+# comes from the config run_resnet is given, as bench.py sets it.
+RESNET_WL = {"variant": "resnet50", "steps": 8, "batch_size": 128, "image_size": 224,
+             "num_classes": 1000, "lr": 0.1, "data": "fixed"}
 # Kernel launches per layer and step on each training path (the counters
 # of COUNTERS; the rest must stay 0): save_mid (gqa-2048) and full remat
 # (moe-small) both run the attention forward twice. The MoE layer's
@@ -233,6 +273,54 @@ GMM_BF16_RMS_ATOL = 2.0**-6
 # all O(1)): the same routing and sums in other orders, ~1e-6; a flipped
 # token choice moves lb by ~1e-3. Limit 1e-4.
 PARITY_MOE_METRIC_ATOL = 1e-4
+# K8 (fused_linear_stats) vs its plain version, element by element. y
+# (rounded to x's dtype) as the flash kernels: bf16 2^-7 of the value +
+# 2^-6 of its row's rms; f32 1e-4 absolute, plus 2^-16 of the value: the
+# split operands keep each product to ~2^-17 of itself, and K8's y is not
+# bounded near 1 as flash's outputs are (an f32 prologue case at K 8
+# measured 1.02e-4 on the first H100 run). The statistics: both sides
+# sum the f32 product of the same operands, in other orders. Each
+# column's sum differs by (a) the reduction orders, within ~log2(M) eps of
+# sum|y| at worst (the kernel: 8 rows a thread, 8 lanes, 2 warps, then the
+# per-tile partial rows; the plain version: torch.sum) and a few eps
+# typically; (b) the per-element product differences: with bf16 operands
+# (the path's type) the products are exact and only the tensor cores'
+# truncated 16-term sums differ, a few ulps of y, random in sign over the
+# rows unless every row has one sign; with f32 operands the kernel
+# multiplies bf16 hi + lo splits, which keep each value to ~2^-17 of
+# itself, and a weight's dropped bits are the same for every row, so where
+# the rows are all >= 0 (a ReLU'd x, or the prologue's output) they do not
+# cancel in a column's sum. This check on an H100 (its cases below, 700
+# W) measured up to 4.5 eps for bf16 and 105 for f32 (the prologue's
+# cases, whose rows are all >= 0; a first limit of 32 for both failed
+# there). Limits, in eps_f32 of sum|y| for the sum and of
+# sum y^2 for the sum of squares: 32 for bf16, 256 for f32. With the prologue in
+# bf16 the kernel multiplies relu(x*a + b) rounded to bf16 (a declared
+# difference); its statistics are held to the plain version of that
+# rounded operand, and its y to the plain version of the unrounded one
+# within the bf16 limit above. A row tile left out of the statistics moves
+# a column's sum of squares by ~128 y^2 (far above the limit at any M of
+# the path); statistics taken from the bf16-rounded y move it by ~2^-9
+# sqrt(M) y^2, ~16x the bf16 limit at M 1000, where fls_plant runs (less at
+# larger M, as 1/sqrt(M)).
+FLS_STATS_C = {"bf16": 32, "f32": 256}
+FLS_F32_RTOL = 2.0**-16
+F32_EPS = 2.0**-23
+# f32 ResNet card vs CPU (resnet_parity): loss (~6.9) within 1e-4 and the
+# BN running statistics (O(1)) within 1e-4, other sum orders only. The
+# grads are held norm-wise (|g_card - g_cpu| / |g_cpu| over every param),
+# against the network's own sensitivity to rounding: a few leaves' true
+# values cancel to near zero (a BN bias in front of another batch norm;
+# tests/test_torch_resnet_forward.py), so f32 rounding anywhere moves them
+# by up to ~5% of their size, and on the first H100 run the card-CPU gap
+# was 1.15e-3 norm-wise. The phase measures that sensitivity on the CPU:
+# the grads' norm-wise change when the images move by one f32 ulp each
+# (a perturbation the size of one rounding). The card must stay within 10
+# times it (and 1e-4 at least); a wrong statistic, tile or backward moves
+# the grads by O(1).
+RESNET_PARITY_ATOL = 1e-4
+RESNET_PARITY_NOISE_X = 10.0
+RESNET_PARITY_GRAD_FLOOR = 1e-4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32
 # (non-tensor-core) and bf16 (tensor-core, dense) operations/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -265,7 +353,7 @@ def check(cond: bool, what: str) -> None:
 COUNTERS = {
     "decode_launches": fa, "flash_fwd_launches": fa, "flash_bwd_dq_launches": fa,
     "flash_bwd_dkv_launches": fa, "gmm_fwd_launches": gm, "gmm_fwd_scaled_launches": gm,
-    "gmm_dw_launches": gm, "gmm_dw_scaled_launches": gm,
+    "gmm_dw_launches": gm, "gmm_dw_scaled_launches": gm, "fused_linear_stats_launches": fls,
 }
 
 
@@ -854,7 +942,7 @@ def build_all():
         lib = _build._lib_path(n)
         if not lib.exists():
             jobs[n] = (_build.CSRC / f"{n}.cu", lib)
-    for plants in (FLASH_PLANTS, GMM_PLANTS):
+    for plants in (FLASH_PLANTS, GMM_PLANTS, FLS_PLANTS):
         jobs.update(plant_jobs(tuple(plants), plants)[0])
     _build.build_log.update(_build.compile_sources(jobs))
 
@@ -939,6 +1027,9 @@ def kernel_category(name: str) -> str:
     """A device item's family, read from its name."""
     n = name.lower()
     for cat, marks in (("flash kernels", ("flash::",)), ("grouped-matmul kernels", ("gmm::",)),
+                       ("fused-linear-stats kernel", ("fls::",)),
+                       ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "implicit_gemm",
+                                                "cudnn", "conv2d", "convolve")),
                        ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
                        ("reduction", ("reduce",)), ("copy/cast", ("copy", "memcpy")),
                        ("fill", ("fill", "memset")), ("elementwise", ("elementwise",))):
@@ -947,15 +1038,16 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown"):
-    """Training steps of a train phase's run on the host clock and under
-    torch.profiler: device busy time per step, idle share, top kernels, the
-    three flash kernels' share and the grouped-matmul kernels' (forward
-    and dw)."""
+def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown", batch=None):
+    """Training steps of a train phase's run (on ``batch``, default the
+    run's tokens) on the host clock and under torch.profiler: device busy
+    time per step, idle share, top kernels, the three flash kernels'
+    share, the grouped-matmul kernels' (forward and dw) and K8's."""
     holder = {"state": run.state}
+    batch = run.tokens if batch is None else batch
 
     def step():
-        holder["state"], m = run.trainer.step(holder["state"], run.tokens)
+        holder["state"], m = run.trainer.step(holder["state"], batch)
         return m
 
     float(step()["loss"])
@@ -970,6 +1062,7 @@ def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown"):
              for kind in ("fwd", "dq", "dkv")}
     gmm_ms = {kind: sum(t for k, _, t in rows if "gmm::" in k and f"{kind}_kernel" in k) / iters
               for kind in ("fwd", "dw")}
+    fls_ms = sum(t for k, _, t in rows if "fls::" in k) / iters
     by_category = {}
     for k, _, t in rows:
         by_category[kernel_category(k)] = by_category.get(kernel_category(k), 0.0) + t / iters
@@ -982,6 +1075,7 @@ def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown"):
         "flash_share_of_busy": sum(flash.values()) / busy_ms if busy_ms else None,
         "gmm_ms_per_step": gmm_ms,
         "gmm_share_of_busy": sum(gmm_ms.values()) / busy_ms if busy_ms else None,
+        "fls_ms_per_step": fls_ms, "fls_share_of_busy": fls_ms / busy_ms if busy_ms else None,
         "ms_per_step_by_category": dict(sorted(by_category.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"kernel": k[:100], "launches_per_step": c / iters,
                          "ms_per_step": t / iters,
@@ -1078,9 +1172,17 @@ def phase_train_parity(dev, wl=TRAIN_WL, per_layer=DENSE_PER_LAYER, phase="train
 
 
 def leaves_with_names(tree, prefix=""):
+    """(path, leaf) of nested dicts (sorted keys) and lists (in order)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves_with_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in leaves_with_names(v, f"{prefix}{i}/")]
     return [(prefix.rstrip("/"), tree)]
+
+
+def tree_leaves(tree):
+    """Leaves of nested dicts (sorted keys) and lists, as the trainer walks them."""
+    return [x for _, x in leaves_with_names(tree)]
 
 
 # ---------------------------------------------------------------------------
@@ -1463,6 +1565,403 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
     return out
 
 
+# ---------------------------------------------------------------------------
+# ResNet training: the fused matmul + BN-statistics kernel (K8)
+# ---------------------------------------------------------------------------
+
+
+def fused_1x1_shapes(cfg, batch, image):
+    """(M, K, N) of every fused_linear_stats launch of one train-mode
+    forward with fused_1x1, in launch order: per bottleneck conv1 at the
+    block's input size, conv3 and (where the block has one) the projection
+    at its output size."""
+    h = -(-(-(-image // 2)) // 2)  # the stem (stride 2), then the max pool (stride 2)
+    cin, out = 64, []
+    for si, (n_blocks, width) in enumerate(zip(cfg.stage_sizes, cfg.widths)):
+        for bi in range(n_blocks):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            cout, ho = width * 4, -(-h // stride)
+            out += [(batch * h * h, cin, width), (batch * ho * ho, width, cout)]
+            if stride != 1 or cin != cout:
+                out.append((batch * ho * ho, cin, cout))
+            cin, h = cout, ho
+    return out
+
+
+# shapes off the kernel's tile grid (M not a multiple of 128, K not of 32,
+# N below and between the 64 and 128 tile widths)
+FLS_OFF_GRID = ((1000, 72, 40), (1000, 264, 200), (333, 8, 136))
+
+
+def fls_case(gen, m, k, n, dtype, dev, prologue):
+    """Inputs of one K8 check: x [m, k] (N(0, 1)), w [k, n] (N(0, 1/k)), and
+    for the prologue a in [0.5, 1.5), b N(0, 0.5^2)."""
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = torch.randn(k, n, device=dev, generator=gen) * k**-0.5
+    a = b = None
+    if prologue:
+        a = torch.rand(k, device=dev, generator=gen) + 0.5
+        b = torch.randn(k, device=dev, generator=gen) * 0.5
+    return x.to(dtype), w.to(dtype), a, b
+
+
+def compare_fls(x, w, a, b):
+    """K8 against its plain version on the same card tensors (f32). Returns
+    {name: (max abs err, largest err / limit)} for y, sum and ssq (see
+    FLS_STATS_C for the limits and the operand the statistics are held
+    to)."""
+    y, s, q = fls.fused_linear_stats_kernel(x, w, a, b)
+    relu = a is not None
+    y_ref = fls._reference(x.float(), w.float(), a, b, relu)[0]
+    xin = x.float()
+    if relu:
+        # the operand the kernel multiplies: x*a + b rounded once to f32 (a
+        # fused multiply-add; in f64 here, exact before that one rounding),
+        # the ReLU, then x's dtype
+        xin = torch.relu((x.double() * a.double() + b.double()).float()).to(x.dtype).float()
+    y32, s_ref, q_ref = fls._reference(xin, w.float(), None, None, False)
+    torch.cuda.synchronize()
+    out = {}
+    for name, got in (("y", y), ("sum", s), ("ssq", q)):
+        check(bool(torch.isfinite(got).all()), f"fused_linear_stats {name} not finite")
+    # an error where the limit is 0 (an all-zero row or column) counts as
+    # infinitely over it
+    err = (y.float() - y_ref).abs()
+    y_limit = flash_limit("y", y_ref, x.dtype)
+    if x.dtype == torch.float32:
+        y_limit = y_limit + FLS_F32_RTOL * y_ref.abs()
+    ratio = torch.where(err == 0, 0.0, err / y_limit)
+    out["y"] = (float(err.max()), float(ratio.max()))
+    for name, got, want, mag in (("sum", s, s_ref, y32.abs().sum(0)),
+                                 ("ssq", q, q_ref, (y32 * y32).sum(0))):
+        err = (got - want).abs()
+        limit = FLS_STATS_C["f32" if x.dtype == torch.float32 else "bf16"] * F32_EPS * mag
+        ratio = torch.where(err == 0, 0.0, err / limit)
+        out[name] = (float(err.max()), float(ratio.max()))
+    return out
+
+
+def phase_fls_check(dev, shapes=None):
+    """K8 against its plain version on the card (compare_fls): the distinct
+    shapes of ResNet-50's 1x1 convolutions at RESNET_WL's batch and image
+    size, and FLS_OFF_GRID, in bf16 and f32, with and without the
+    prologue."""
+    if shapes is None:
+        shapes = sorted(set(fused_1x1_shapes(ResNetConfig.resnet50(), RESNET_WL["batch_size"],
+                                             RESNET_WL["image_size"])))
+    gen = torch.Generator(dev).manual_seed(5)
+    worst = {dt: {k: 0.0 for k in ("y", "sum", "ssq")} for dt in ("f32", "bf16")}
+    ratio = {dt: {k: 0.0 for k in ("y", "sum", "ssq")} for dt in ("f32", "bf16")}
+    n, failures = 0, []  # checked after the line is printed
+    for m, k, nn in (*shapes, *FLS_OFF_GRID):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = "f32" if dtype == torch.float32 else "bf16"
+            for prologue in (False, True):
+                errs = compare_fls(*fls_case(gen, m, k, nn, dtype, dev, prologue))
+                if not all(r <= 1.0 for _, r in errs.values()):
+                    failures.append(f"M {m} K {k} N {nn} {dtype} prologue={prologue}: {errs}")
+                for part, (e, r) in errs.items():
+                    worst[key][part] = max(worst[key][part], e)
+                    ratio[key][part] = max(ratio[key][part], r)
+                n += 1
+    emit({"phase": "fls_check", "cases": n, "path_shapes": [list(t) for t in shapes],
+          "off_grid_shapes": [list(t) for t in FLS_OFF_GRID],
+          "limits": {"y_f32_atol": FLASH_F32_ATOL, "y_f32_rtol": FLS_F32_RTOL,
+                     "y_bf16_rtol": FLASH_BF16_RTOL, "y_bf16_row_rms_atol": FLASH_BF16_ROW_ATOL,
+                     "stats_eps_multiple": FLS_STATS_C,
+                     "stats": "multiple x eps_f32 x sum|y| (sum), x sum y^2 (ssq)"},
+          "max_abs_err": worst, "worst_err_over_limit": ratio, "failures": failures})
+    check(not failures, f"fused_linear_stats vs plain: {failures}")
+    return worst, ratio
+
+
+FLS_PLANTS = {
+    # the last row tile's rows never reach the statistics
+    "stats_skip_last_tile": ("fls", "fused_linear_stats.cu",
+                             "const float keep = row < M ? 1.f : 0.f;",
+                             "const float keep = (row < M && blockIdx.y + 1 < gridDim.y) ? 1.f "
+                             ": 0.f;"),
+    # the statistics of the bf16-rounded y instead of the f32 accumulator
+    "stats_from_rounded_y": ("fls", "fused_linear_stats.cu",
+                             "const float v = acc[mi][ni][2 * half + j] * keep;",
+                             "const float v = __bfloat162float(__float2bfloat16("
+                             "acc[mi][ni][2 * half + j])) * keep;"),
+    # the prologue applies the affine without the ReLU
+    "prologue_no_relu": ("fls", "fused_linear_stats.cu",
+                         "for (int j = 0; j < 8; ++j) v[j] = fmaxf(__fmaf_rn(v[j], av[j], bv[j]), 0.f);",
+                         "for (int j = 0; j < 8; ++j) v[j] = __fmaf_rn(v[j], av[j], bv[j]);"),
+}
+# (M, K, N) of fls_plant: off the tile grid, and M at ~10^3 (FLS_STATS_C)
+FLS_PLANT_SHAPES = ((1000, 72, 40), (1000, 256, 128))
+
+
+@contextlib.contextmanager
+def fls_planted(lib):
+    """Route the K8 wrapper to the planted library."""
+    fls._fls_fn()  # bind the real one first, so it can be put back
+    real = fls._fns[fls.FLS_ENTRY]
+    fls._fns[fls.FLS_ENTRY] = fls.bind_fls_entry(lib)
+    try:
+        yield
+    finally:
+        fls._fns[fls.FLS_ENTRY] = real
+
+
+def phase_fls_plant(dev):
+    """Each planted fault (FLS_PLANTS) at FLS_PLANT_SHAPES, bf16 and f32,
+    with and without the prologue: the check of phase fls_check must fail
+    on the faulty kernel's outputs by 10x its limit or more (the worst
+    case of each plant). Launches here are not the main path's."""
+    libs = build_plants(tuple(FLS_PLANTS), FLS_PLANTS)
+    gen = torch.Generator(dev).manual_seed(6)
+    cases = [fls_case(gen, m, k, n, dtype, dev, prologue) for m, k, n in FLS_PLANT_SHAPES
+             for dtype in (torch.bfloat16, torch.float32) for prologue in (False, True)]
+    out = {}
+    for name, lib in libs.items():
+        with fls_planted(lib):
+            errs = [compare_fls(*c) for c in cases]
+        worst = {part: max(e[part][1] for e in errs) for part in ("y", "sum", "ssq")}
+        check(max(worst.values()) >= 10.0,
+              f"planted fault {name} not caught at 10x its limit: {worst}")
+        out[name] = worst
+    emit({"phase": "fls_plant", "caught": len(out), "shapes": [list(t) for t in FLS_PLANT_SHAPES],
+          "worst_err_over_limit": out})
+
+
+# ---------------------------------------------------------------------------
+# ResNet training: the main path
+# ---------------------------------------------------------------------------
+
+
+def phase_resnet_train(smi, dev="cuda", wl=RESNET_WL, fused=True, phase="resnet_train"):
+    """ResNet-50 at full width and depth through run_resnet, fused_1x1 as
+    given: one warmup and wl["steps"] timed steps; K8 launched exactly once
+    per fused 1x1 convolution of every step (36 at ResNet-50) and no other
+    kernel; the loss finite, and falling with fused_1x1. (At lr 0.1 on one
+    random batch the loss swings: the first H100 run's unfused yardstick
+    rose from 7.06 to 12.59 at its ninth step, the fused run to 6.39.)"""
+    cfg = replace(ResNetConfig.resnet50(int(wl["num_classes"])), fused_1x1=fused)
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = run_resnet(wl, device=dev, cfg=cfg)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = len(run.losses)
+    per_step = len(fused_1x1_shapes(cfg, wl["batch_size"], wl["image_size"])) if fused else 0
+    want = {name: 0 for name in COUNTERS}
+    want["fused_linear_stats_launches"] = per_step * n
+    check(counts == want, f"{phase} launches {counts} != {want}")
+    check(all(np.isfinite(run.losses)), f"non-finite loss: {run.losses}")
+    if fused:  # the path under test; the unfused run is its yardstick
+        check(run.losses[-1] < run.losses[0], f"loss did not fall: {run.losses}")
+    emit({
+        "phase": phase, "variant": wl["variant"], "fused_1x1": fused,
+        "params": sum(p.numel() for p in tree_leaves(run.state.params)),
+        "batch": wl["batch_size"], "image": wl["image_size"], "dtype": str(cfg.dtype),
+        "optimizer": "sgd momentum 0.9", "lr": wl["lr"],
+        "bn_stats_stop_gradient": cfg.bn_stats_stop_gradient,
+        "steps": n, "timed_steps": run.timed, "losses": run.losses,
+        "launches": counts, "fls_launches_per_step": counts["fused_linear_stats_launches"] / n,
+        "step_ms": run.step_s * 1e3, "images_per_s": run.images_per_s,
+        "model_flops_per_step": run.flops, "mfu": run.mfu(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+        "run_resnet_wall_s": wall, "card": smi,
+    })
+    return run, counts
+
+
+def phase_resnet_breakdown(run, smi, iters=2):
+    """ResNet training steps (fused_1x1) on the host clock and under
+    torch.profiler, as train_breakdown, K8 a family of its own; then the
+    SGD update alone under the profiler (on grads of one more backward),
+    which the elementwise family of a step includes."""
+    phase_train_breakdown(run, smi, iters=iters, phase="resnet_breakdown", batch=run.batch)
+    loss, _ = resnet_loss(run.state.params, run.batch, run.state.extra, run.cfg)
+    loss.backward()
+    rows = profile_kernels(lambda: run.trainer._apply(run.state))
+    emit({"phase": "resnet_breakdown_sgd", "sgd_update_device_ms": sum(r[2] for r in rows),
+          "sgd_update_device_items": sum(r[1] for r in rows),
+          "top_kernels": [{"kernel": k[:100], "launches": c, "ms": t} for k, c, t in rows[:4]],
+          "card": smi})
+
+
+@contextlib.contextmanager
+def plain_fls():
+    """Route CUDA tensors of fused_linear_stats to its plain version."""
+    saved = fls.fused_linear_stats_kernel
+    fls.fused_linear_stats_kernel = lambda x, w, a=None, b=None: fls._reference(
+        x, w, a, b, a is not None)
+    try:
+        yield
+    finally:
+        fls.fused_linear_stats_kernel = saved
+
+
+def phase_resnet_parity(dev, batch=8, image=64, steps=3):
+    """ResNet-50 widths at one block a stage, image 64, b 8: (1) f32 loss, BN
+    state and grads on the card (K8, cuDNN, cuBLAS) against the CPU (plain
+    versions) from the same params and batch, fused_1x1 on and off; (2) 3
+    bf16 SGD steps (lr 0.1) on the card with K8 against 3 with its plain
+    version on the same card tensors."""
+    base = replace(ResNetConfig.resnet50(), stage_sizes=(1, 1, 1, 1))
+    params, state = init_resnet(base, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.RandomState(7)
+    images = torch.from_numpy(rng.standard_normal((batch, image, image, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 1000, batch))
+    out = {"phase": "resnet_parity", "stage_sizes": list(base.stage_sizes),
+           "widths": list(base.widths), "batch": batch, "image": image}
+    failures = []  # checked after the line is printed, so a failure shows its numbers
+    for fused in (False, True):
+        cfg = replace(base, dtype=torch.float32, fused_1x1=fused)
+
+        def loss_and_grads(where, imgs=images):
+            p = tree_map(lambda x: x.detach().to(where).requires_grad_(True), params)
+            loss, new_state = resnet_loss(p, (imgs.to(where), labels.to(where)),
+                                          tree_map(lambda x: x.to(where), state), cfg)
+            loss.backward()
+            return (float(loss.detach()), tree_map(lambda x: x.cpu(), new_state),
+                    tree_map(lambda x: x.grad.cpu(), p))
+
+        reset_counts()
+        card_loss, card_state, card_g = loss_and_grads(dev)
+        k8 = read_counts()["fused_linear_stats_launches"]
+        check(k8 == (len(fused_1x1_shapes(cfg, batch, image)) if fused else 0),
+              f"resnet_parity fused={fused}: {k8} K8 launches")
+        cpu_loss, cpu_state, cpu_g = loss_and_grads("cpu")
+        ulp = torch.from_numpy(np.random.RandomState(8).choice([-1.0, 1.0], images.shape))
+        _, _, nudged_g = loss_and_grads("cpu", images * (1 + 2.0**-23 * ulp).float())
+        loss_err = abs(card_loss - cpu_loss)
+        state_err = max(float((a - b).abs().max()) for a, b in
+                        zip(tree_leaves(card_state), tree_leaves(cpu_state)))
+        g_max = max(float(g.abs().max()) for g in tree_leaves(cpu_g))
+        g_err = max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(card_g), tree_leaves(cpu_g)))
+        g_norm = float(torch.cat([g.flatten() for g in tree_leaves(cpu_g)]).norm())
+
+        def rel(other):
+            return float(torch.cat([(a - b).flatten() for a, b in
+                                    zip(tree_leaves(other), tree_leaves(cpu_g))]).norm()) / g_norm
+
+        g_rel, noise = rel(card_g), rel(nudged_g)
+        g_limit = max(RESNET_PARITY_NOISE_X * noise, RESNET_PARITY_GRAD_FLOOR)
+        own = {name: float((gc - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+               for (name, gc), (_, gp) in zip(leaves_with_names(card_g),
+                                              leaves_with_names(cpu_g))}
+        failures += [what for ok, what in (
+            (loss_err <= RESNET_PARITY_ATOL, f"fused={fused} loss {card_loss} vs {cpu_loss}"),
+            (state_err <= RESNET_PARITY_ATOL, f"fused={fused} BN state {state_err}"),
+            (g_rel <= g_limit, f"fused={fused} grads {g_rel} norm-wise > {g_limit}"))
+            if not ok]
+        worst_own = sorted(own.items(), key=lambda kv: -kv[1])[:5]
+        out[f"f32_fused_1x1={fused}"] = {
+            "loss_card": card_loss, "loss_cpu": cpu_loss, "loss_abs_diff": loss_err,
+            "bn_state_max_abs_diff": state_err, "grad_max_abs_diff": g_err,
+            "grad_largest_magnitude": g_max, "grad_diff_over_largest": g_err / g_max,
+            "grad_norm_rel_diff": g_rel, "grad_norm_rel_one_ulp_images": noise,
+            "grad_norm_rel_limit": g_limit,
+            "grad_leaf_rel_diff_worst5": dict(worst_own)}
+    out["f32_limits"] = {"loss_atol": RESNET_PARITY_ATOL, "bn_state_atol": RESNET_PARITY_ATOL,
+                         "grad_norm_rel": f"max({RESNET_PARITY_NOISE_X} x the one-ulp-images "
+                                          f"change, {RESNET_PARITY_GRAD_FLOOR})"}
+
+    cfg16 = replace(base, fused_1x1=True)
+    data = (images.to(dev), labels.to(dev))
+
+    def train(use_plain):
+        trainer = Trainer(loss_fn=lambda p, b, e: resnet_loss(p, b, e, cfg16), init_fn=None,
+                          config=TrainerConfig(optimizer="sgd", learning_rate=0.1,
+                                               grad_clip=None), device=dev)
+        st = trainer.state_from_params(tree_map(lambda x: x.clone().to(dev), params),
+                                       tree_map(lambda x: x.clone().to(dev), state))
+        reset_counts()
+        losses = []
+        with plain_fls() if use_plain else contextlib.nullcontext():
+            for _ in range(steps):
+                st, m = trainer.step(st, data)
+                losses.append(m["loss"])
+        return [float(x) for x in losses], read_counts()["fused_linear_stats_launches"]
+
+    kern, kern_n = train(False)
+    plain, plain_n = train(True)
+    check(kern_n == len(fused_1x1_shapes(cfg16, batch, image)) * steps and plain_n == 0,
+          f"bf16 steps: K8 launches {kern_n} (kernel run), {plain_n} (plain run)")
+    step_err = max(abs(a - b) for a, b in zip(kern, plain))
+    first_err = abs(kern[0] - plain[0])
+    if not (all(np.isfinite(kern)) and step_err <= PARITY_BF16_LOSS_ATOL
+            and first_err <= PARITY_BF16_FIRST_STEP_ATOL):
+        failures.append(f"bf16 steps, K8 {kern} vs plain {plain}")
+    out.update({"bf16_losses_kernel": kern, "bf16_losses_plain": plain,
+                "bf16_loss_max_abs_diff": step_err, "bf16_loss_atol": PARITY_BF16_LOSS_ATOL,
+                "bf16_first_step_abs_diff": first_err,
+                "bf16_first_step_atol": PARITY_BF16_FIRST_STEP_ATOL})
+    emit(out)
+    check(not failures, f"resnet_parity: {failures}")
+
+
+def phase_fls_timing(smi, dev="cuda"):
+    """K8 at every distinct shape of resnet_train (bf16, no prologue, as the
+    path runs it) beside its bound (the larger of 2MKN operations at 989
+    TFLOP/s and its bytes at 3.35 TB/s: x and w read once, y and the two
+    f32 [N] statistics written once), its plain version, torch.mm alone
+    (the product, no statistics) and torch.mm with an f32 result plus the
+    two column reductions and the cast of y (the unfused sequence). No one
+    PyTorch call computes K8's function. Per-step sums weight each shape
+    by its launches a step."""
+    cfg = ResNetConfig.resnet50()
+    launches = fused_1x1_shapes(cfg, RESNET_WL["batch_size"], RESNET_WL["image_size"])
+    gen = torch.Generator(dev).manual_seed(8)
+    bf = torch.bfloat16
+    per_shape = []
+    for shape in sorted(set(launches), key=lambda t: -t[0] * t[1] * t[2]):
+        m, k, n = shape
+        x, w, _, _ = fls_case(gen, m, k, n, bf, dev, False)
+
+        def unfused(i):
+            y32 = torch.mm(x, w, out_dtype=torch.float32)
+            return y32.to(bf), y32.sum(0), (y32 * y32).sum(0)
+
+        errs = compare_fls(x, w, None, None)
+        check(all(r <= 1.0 for _, r in errs.values()), f"K8 at {shape}: {errs}")
+        ms, source, runs = timed_in_turns(
+            [("kernel", lambda i: fls.fused_linear_stats_kernel(x, w)),
+             ("plain", lambda i: fls._reference(x, w, None, None, False)),
+             ("mm", lambda i: torch.mm(x, w)), ("unfused", unfused)],
+            {"kernel": 20, "plain": 3, "mm": 20, "unfused": 10})
+        ops, nbytes = 2 * m * k * n, 2 * (m * k + k * n + m * n) + 2 * 4 * n
+        ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        count = launches.count(shape)
+        per_shape.append({
+            "m": m, "k": k, "n": n, "launches_per_step": count, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "mm_ms": ms["mm"], "mm_plus_reductions_ms": ms["unfused"],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "tflops": ops / ms["kernel"] / 1e9,
+            "ms_per_step": ms["kernel"] * count, "max_abs_err": errs["y"][0],
+            "ms_source": source, "runs": runs})
+        del x, w
+    per_shape.sort(key=lambda r: -r["ms_per_step"])
+    step = {key: sum(r[key] * r["launches_per_step"] for r in per_shape)
+            for key in ("ms", "plain_ms", "mm_ms", "mm_plus_reductions_ms", "bound_ms",
+                        "ops_ms", "bytes_ms")}
+    step["bound_by"] = "operations" if step["ops_ms"] >= step["bytes_ms"] else "bytes"
+    step["launches"] = len(launches)
+    step["max_abs_err"] = max(r["max_abs_err"] for r in per_shape)
+    emit({"phase": "fls_timing", "dtype": "bfloat16", "batch": RESNET_WL["batch_size"],
+          "image": RESNET_WL["image_size"],
+          "yardsticks": "mm: torch.mm(x, w), the product alone; mm_plus_reductions: "
+                        "torch.mm(out_dtype=f32), its column sum and sum of squares and the "
+                        "bf16 cast of y; no one PyTorch call computes K8's function",
+          "per_step": step, "top3_by_step_time": per_shape[:3], "shapes": per_shape,
+          "card": smi})
+    return step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1522,6 +2021,26 @@ def main() -> int:
               phase="moe_parity", bf16_atol=PARITY_MOE_BF16_LOSS_ATOL)
     gt = run_phase("gmm_timing", phase_gmm_timing, smi)
 
+    # ResNet training path: ResNet-50
+    torch.cuda.empty_cache()
+    fls_err, fls_ratio = run_phase("fls_check", phase_fls_check, dev)
+    run_phase("fls_plant", phase_fls_plant, dev)
+    torch.cuda.empty_cache()
+    resnet_run, resnet_counts = run_phase("resnet_train", phase_resnet_train, smi)
+    run_phase("resnet_breakdown", phase_resnet_breakdown, resnet_run, smi)
+    del resnet_run
+    torch.cuda.empty_cache()
+    unfused_run, _ = run_phase("resnet_train_unfused", phase_resnet_train, smi, fused=False,
+                               phase="resnet_train_unfused")
+    # the yardstick's device time: the host clock moves with the host
+    run_phase("resnet_breakdown_unfused", phase_train_breakdown, unfused_run, smi,
+              phase="resnet_breakdown_unfused", batch=unfused_run.batch)
+    del unfused_run
+    torch.cuda.empty_cache()
+    run_phase("resnet_parity", phase_resnet_parity, dev)
+    torch.cuda.empty_cache()
+    flt = run_phase("fls_timing", phase_fls_timing, smi)
+
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "tf_operator_tpu_torch/ops/csrc/paged_decode.cu",
@@ -1573,6 +2092,25 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
         })
+    kernels.append({
+        "name": "fused_linear_stats", "route": "cuda",
+        "source": "tf_operator_tpu_torch/ops/csrc/fused_linear_stats.cu",
+        "replaces": "tf_operator_tpu/ops/fused_linear_stats.py:69",
+        "launches": resnet_counts["fused_linear_stats_launches"],
+        # y in bf16 (the path's type) against the f32 plain version on the
+        # same inputs, over every fls_check case and the timing shapes
+        "max_abs_err": max(fls_err["bf16"]["y"], flt["max_abs_err"]),
+        "max_abs_err_f32": fls_err["f32"]["y"],
+        # the sum and sum of squares: worst error over its limit (FLS_STATS_C)
+        "stats_worst_err_over_limit": max(fls_ratio[d][p] for d in fls_ratio
+                                          for p in ("sum", "ssq")),
+        # times, bound and plain time summed over the 36 launches of one
+        # ResNet-50 step (b 128, 224^2); per shape in the fls_timing line
+        "ms": flt["ms"], "plain_ms": flt["plain_ms"], "bound_ms": flt["bound_ms"],
+        "bound_by": flt["bound_by"], "library_ms": None,
+        "per": "one ResNet-50 step (36 launches)",
+        "mm_ms": flt["mm_ms"], "mm_plus_reductions_ms": flt["mm_plus_reductions_ms"],
+    })
     emit({"phase": "wall", "total_s": time.perf_counter() - t_start, "phase_s": phase_s})
     emit({"kernels": kernels})
     print(smi, flush=True)

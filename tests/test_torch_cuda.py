@@ -12,13 +12,18 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     FLASH_PLANTS,
+    FLS_PLANTS,
+    FLS_STATS_C,
     GMM_MIXED_MAP,
     GMM_PLANTS,
     build_plants,
     compare_flash,
+    compare_fls,
     compare_gmm,
     flash_case,
     flash_within,
+    fls_case,
+    fls_planted,
     gmm_case,
     gmm_limit,
     gmm_planted,
@@ -28,6 +33,7 @@ from chip_smoke import (  # noqa: E402
 )
 from tf_operator_tpu_torch.models.transformer import init_transformer, preset  # noqa: E402
 from tf_operator_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from tf_operator_tpu_torch.ops import fused_linear_stats as fls  # noqa: E402
 from tf_operator_tpu_torch.ops import grouped_matmul as gm  # noqa: E402
 from tf_operator_tpu_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
 from tf_operator_tpu_torch.workloads.serve import synthesize_requests  # noqa: E402
@@ -240,3 +246,74 @@ def test_gmm_kernel_refuses_unsupported(dev):
     with pytest.raises(ValueError, match="multiple of 128"):
         gm.gmm(x.float(), w.float(), torch.zeros(4, dtype=torch.int32, device=dev),
                block_rows=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
+@pytest.mark.parametrize("m,k,n", [(1000, 72, 40), (640, 256, 128), (333, 8, 136)])
+def test_fls_kernel_matches_plain(dev, dtype, prologue, m, k, n):
+    """K8 against its plain version (chip_smoke.compare_fls): y, the column
+    sums and sums of squares, on and off the tile grid; one launch."""
+    gen = torch.Generator(dev).manual_seed(41)
+    before = fls.fused_linear_stats_launches
+    errs = compare_fls(*fls_case(gen, m, k, n, dtype, dev, prologue))
+    assert fls.fused_linear_stats_launches == before + 1
+    assert all(r <= 1.0 for _, r in errs.values()), errs
+
+
+@pytest.mark.parametrize("name", sorted(FLS_PLANTS))
+def test_fls_check_fails_on_planted_fault(dev, name):
+    """A copy of K8 with one planted fault (a row tile left out of the
+    statistics, statistics from the rounded y, the prologue's ReLU
+    dropped) fails the check the real kernel passes, in some case of
+    both types with and without the prologue."""
+    lib = build_plants([name], FLS_PLANTS)[name]
+    gen = torch.Generator(dev).manual_seed(42)
+    cases = [fls_case(gen, 1000, 72, 40, dtype, dev, prologue)
+             for dtype in (torch.bfloat16, torch.float32) for prologue in (False, True)]
+    assert all(r <= 1.0 for c in cases for _, r in compare_fls(*c).values())
+    with fls_planted(lib):
+        worst = max(r for c in cases for _, r in compare_fls(*c).values())
+    assert worst > 10.0, (name, worst)
+
+
+@pytest.mark.parametrize("prologue", [False, True], ids=["plain", "prologue"])
+def test_fls_autograd_on_card(dev, prologue):
+    """The public entry on CUDA tensors: y, the statistics and the grads of
+    x, w (and a, b) equal the CPU's, f32: y within 1e-4; the statistics
+    within FLS_STATS_C["f32"] eps of their magnitude sums; the grads (plain f32
+    products on both) within 1e-4 of each one's largest magnitude."""
+    rng = np.random.RandomState(43)
+    x = torch.from_numpy(rng.randn(520, 64).astype(np.float32))
+    w = torch.from_numpy((rng.randn(64, 96) / 8).astype(np.float32))
+    a = torch.from_numpy((rng.rand(64) + 0.5).astype(np.float32))
+    b = torch.from_numpy((rng.randn(64) * 0.5).astype(np.float32))
+    cts = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in ((520, 96), (96,), (96,))]
+    outs = {}
+    for where in ("cpu", dev):
+        leaves = [t.detach().to(where).requires_grad_(True) for t in (x, w, a, b)]
+        y, s, q = fls.fused_linear_stats(leaves[0], leaves[1],
+                                         (leaves[2], leaves[3]) if prologue else None)
+        torch.autograd.backward((y, s, q), [c.to(where) for c in cts])
+        outs[str(where)] = [t.detach().cpu() for t in (y, s, q)] + [
+            t.grad.cpu() for t in leaves if t.grad is not None]
+    cpu, card = outs["cpu"], outs[str(dev)]
+    assert len(card) == len(cpu) == (7 if prologue else 5)
+    torch.testing.assert_close(card[0], cpu[0], atol=1e-4, rtol=0)
+    y32 = cpu[0]
+    for got, want, mag in ((card[1], cpu[1], y32.abs().sum(0)),
+                           (card[2], cpu[2], (y32 * y32).sum(0))):
+        assert bool(((got - want).abs() <= FLS_STATS_C["f32"] * 2.0**-23 * mag + 1e-6).all())
+    for got, want in zip(card[3:], cpu[3:]):
+        torch.testing.assert_close(got, want, atol=1e-4 * float(want.abs().max()), rtol=0)
+
+
+def test_fls_kernel_refuses_unsupported(dev):
+    x = torch.zeros(256, 64, device=dev)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fls.fused_linear_stats(x.half(), torch.zeros(64, 32, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fls.fused_linear_stats(torch.zeros(256, 60, device=dev), torch.zeros(60, 32, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        fls.fused_linear_stats(torch.zeros(64, 256, device=dev).t(),
+                               torch.zeros(64, 32, device=dev))

@@ -110,8 +110,10 @@ def test_unported_modes_raise():
     assert tt.KNOWN_SAVE_NAMES == jt.KNOWN_SAVE_NAMES
     for name in ("tiny", "gqa-2048", "mixtral-8x7b"):
         assert tt.PRESETS[name].n_active_params() == jt.PRESETS[name].n_active_params()
-    with pytest.raises(NotImplementedError, match="M4"):
-        Trainer(loss_fn=None, init_fn=None, config=TrainerConfig(optimizer="sgd"), device="cpu")
+    # sgd is ported (the ResNet path); an optimizer neither package has raises
+    Trainer(loss_fn=None, init_fn=None, config=TrainerConfig(optimizer="sgd"), device="cpu")
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        Trainer(loss_fn=None, init_fn=None, config=TrainerConfig(optimizer="lion"), device="cpu")
 
 
 @pytest.mark.parametrize("accum", [1, 2])

@@ -1,9 +1,11 @@
 """Parameter trees across the JAX/PyTorch seam, as numpy arrays.
 
-The JAX package's params are nested dicts of arrays (``embed``,
-``final_norm``, ``layers/{attn_norm,wq,wk,wv,wo,mlp_norm,w_gate,w_up,
-w_down}``, layer leaves stacked ``[L, ...]``). The port keeps the same
-keys and shapes, so a tree converts leaf by leaf with a plain copy.
+The JAX package's params are nested dicts and lists of arrays: the
+transformer's ``embed``, ``final_norm`` and ``layers/{attn_norm,wq,wk,wv,
+wo,mlp_norm,w_gate,w_up,w_down}`` (layer leaves stacked ``[L, ...]``);
+ResNet's ``stem``, ``head`` and ``stage{i}``, each stage a list of block
+dicts. The port keeps the same keys, order and shapes, so a tree converts
+leaf by leaf with a plain copy.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ from tf_operator_tpu_torch.device import DeviceLike, resolve_device
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict."""
+    """Apply ``fn`` to every leaf of nested dicts, lists and tuples (the
+    containers keep their type and order)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 

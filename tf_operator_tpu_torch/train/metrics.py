@@ -1,6 +1,6 @@
 """Model-FLOPs accounting and MFU against the card's published peak.
 
-Port of ``tf_operator_tpu/train/metrics.py:42-138``. The peak table holds
+Port of ``tf_operator_tpu/train/metrics.py:42-143``. The peak table holds
 NVIDIA data-sheet dense bf16 rates (tensor cores, no sparsity), chosen by
 ``torch.cuda.get_device_name``; a card that is not in the table raises
 rather than getting a guessed peak.
@@ -60,3 +60,8 @@ def transformer_train_flops_exact(n_params: int, tokens_per_step: int, n_layers:
     """6ND plus the attention term."""
     return transformer_train_flops(n_params, tokens_per_step) + attention_train_flops(
         n_layers, d_model, seq_len, tokens_per_step)
+
+
+def resnet_train_flops(fwd_flops_per_image: float, images_per_step: int) -> float:
+    """Training ~ 3x forward."""
+    return 3.0 * fwd_flops_per_image * images_per_step

@@ -15,12 +15,17 @@ generator is a ``torch.Generator`` on the trainer's device.
 
 The optimizer is written out rather than taken from ``torch.optim``, so
 that it is optax's ``chain(clip_by_global_norm(grad_clip), adamw(...))``
-update for update: optax's clip scales by ``max_norm / norm`` only when
-``norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` scales by
-``max_norm / (norm + 1e-6)`` whenever the ratio is below 1), and the
-schedule sees optax's count (0 at the first update) while the bias
-correction uses count + 1. Params, moments and grads are f32 and are
-updated in place, where the JAX trainer donates them to its jitted step.
+or ``sgd(..., momentum)`` update for update: optax's clip scales by
+``max_norm / norm`` only when ``norm >= max_norm``
+(``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm +
+1e-6)`` whenever the ratio is below 1), and the schedule sees optax's
+count (0 at the first update) while AdamW's bias correction uses count +
+1. optax's SGD with momentum is ``trace = g + momentum * trace`` from
+zeros, then ``p -= lr * trace``: no dampening, no Nesterov, no weight
+decay. Params, moments and grads are f32 and are updated in place, where
+the JAX trainer donates them to its jitted step. The model state
+(``extra``, e.g. BN running stats) is whatever the loss returns; losses
+return it detached, so no step's graph outlives its backward.
 """
 
 from __future__ import annotations
@@ -39,8 +44,7 @@ from tf_operator_tpu_torch.device import DeviceLike, resolve_device
 @dataclass
 class TrainerConfig:
     """The JAX TrainerConfig's fields and defaults. ``fast_init_rng`` is
-    accepted and ignored: it picks a JAX PRNG implementation. Only AdamW
-    is ported; ``sgd`` (and so ``momentum``) raises."""
+    accepted and ignored: it picks a JAX PRNG implementation."""
 
     optimizer: str = "adamw"
     learning_rate: float = 3e-4
@@ -67,8 +71,12 @@ class TrainState:
 
 
 def _leaves(tree) -> list:
+    """The leaves of nested dicts (in sorted key order), lists and tuples
+    (in their order)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
@@ -98,9 +106,7 @@ class Trainer:
     def __init__(self, loss_fn: Callable, init_fn: Callable,
                  config: Optional[TrainerConfig] = None, device: DeviceLike = None):
         self.config = config if config is not None else TrainerConfig()
-        if self.config.optimizer == "sgd":
-            raise NotImplementedError("optimizer 'sgd' is not ported yet (ROADMAP M4)")
-        if self.config.optimizer != "adamw":
+        if self.config.optimizer not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {self.config.optimizer!r}")
         self.loss_fn = loss_fn
         self.init_fn = init_fn
@@ -109,8 +115,11 @@ class Trainer:
     # ---- init -----------------------------------------------------------
 
     def init_opt_state(self, params) -> Dict[str, Any]:
-        """AdamW state as optax keeps it: the update count and two moments."""
+        """Optimizer state as optax keeps it: the update count and AdamW's
+        two moments, or SGD's momentum trace."""
         zeros = lambda p: torch.zeros_like(p)  # noqa: E731
+        if self.config.optimizer == "sgd":
+            return {"count": 0, "trace": tree_map(zeros, params)}
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     def init(self, seed: int = 0) -> TrainState:
@@ -173,17 +182,22 @@ class Trainer:
         opt = state.opt_state
         count = opt["count"]
         lr = learning_rate_at(cfg, count)
-        b1, b2 = cfg.beta1, cfg.beta2
-        # optax's bias corrections, in f32 as there
-        bc1 = _f32(1.0 - np.float32(b1) ** np.float32(count + 1))
-        bc2 = _f32(1.0 - np.float32(b2) ** np.float32(count + 1))
-        for p, g, m, v in zip(params, grads, _leaves(opt["mu"]), _leaves(opt["nu"])):
-            m.mul_(b1).add_(g, alpha=1.0 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            upd = (m / bc1).div_((v / bc2).sqrt_().add_(1e-8))
-            if cfg.weight_decay:
-                upd.add_(p, alpha=cfg.weight_decay)
-            p.add_(upd, alpha=-lr)
+        if cfg.optimizer == "sgd":
+            for p, g, t in zip(params, grads, _leaves(opt["trace"])):
+                t.mul_(cfg.momentum).add_(g)
+                p.add_(t, alpha=-lr)
+        else:
+            b1, b2 = cfg.beta1, cfg.beta2
+            # optax's bias corrections, in f32 as there
+            bc1 = _f32(1.0 - np.float32(b1) ** np.float32(count + 1))
+            bc2 = _f32(1.0 - np.float32(b2) ** np.float32(count + 1))
+            for p, g, m, v in zip(params, grads, _leaves(opt["mu"]), _leaves(opt["nu"])):
+                m.mul_(b1).add_(g, alpha=1.0 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+                upd = (m / bc1).div_((v / bc2).sqrt_().add_(1e-8))
+                if cfg.weight_decay:
+                    upd.add_(p, alpha=cfg.weight_decay)
+                p.add_(upd, alpha=-lr)
         opt["count"] = count + 1
         for p in params:
             p.grad = None
