@@ -70,7 +70,9 @@ MoE training path:
 14. ``gmm_plant``: copies of the grouped-matmul source, each with one
     planted fault (a sentinel block computed instead of zeroed, a dw walk
     that skips an expert's last block, the weights of the neighbouring
-    expert): the check of phase 13 must fail on each.
+    expert, K7b's scale read from the next row, the dw products stepping
+    through their MN-major tiles by columns): the check of phase 13 must
+    fail on each, in bf16 and in f32.
 15. ``moe_train``: ``moe-small`` at full width and depth (b 16, t 512,
     flash attention, full remat, bf16, AdamW; 8 experts, top-1, gmm
     dispatch), one warmup and 8 timed steps through ``run_lm``: per layer
@@ -86,7 +88,13 @@ MoE training path:
 18. ``gmm_timing``: the four kernels at the moe_train shapes beside their
     bounds, their plain versions and ``torch._grouped_mm`` on the same
     expert groups (or one ``torch.mm`` of the same FLOPs where the card's
-    PyTorch lacks it or it disagrees, which the line says).
+    PyTorch lacks it or it disagrees, which the line says); for K7b also
+    the two calls that compute its function (scale x, then
+    ``torch._grouped_mm``). For the dw kernels (K7a, K7b): the dw kernel's
+    and the wrapper's block-list ops' device time apart, the wgmma
+    (HGMMA) and TMA (UTMALDG, UBLKCP) instructions in their SASS
+    (``cuobjdump``, which must find both), their registers and spills
+    from the build log, their tile and the operand bytes a launch.
 
 ResNet training path:
 
@@ -131,11 +139,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -712,6 +722,19 @@ def profile_kernels(fn):
     return sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
 
 
+def device_ms_split(fn, iters, name, warmup=2):
+    """(device ms per call of the kernels whose name holds ``name``, of the
+    rest), counted as device_ms counts."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    rows = profile_kernels(lambda: [fn(i) for i in range(iters)])
+    part = {True: 0.0, False: 0.0}
+    for key, n, t in rows:
+        part[name in key] += t / n * max(1, round(n / iters))
+    return part[True], part[False]
+
+
 def device_ms(fn, iters, warmup=10):
     """Device time per call of fn(i): the durations of everything the
     calls ran on the card, without host overhead or idle gaps. A trace can
@@ -894,6 +917,15 @@ GMM_PLANTS = {
     # the forward reads the weights of the neighbouring expert (e xor 1)
     "weight_of_neighbour": ("gmm", "grouped_matmul.cu", "const T* we = w + (size_t)e * K * N;",
                             "const T* we = w + (size_t)(e ^ 1) * K * N;"),
+    # K7b multiplies each x row by the scale of the next row of its stage
+    "dw_scale_next_row": ("gmm", "grouped_matmul.cu", "return SCALED ? ss[r] : 1.f;",
+                          "return SCALED ? ss[(r + 1) % kDepth] : 1.f;"),
+    # the dw products step through the MN-major tiles by 16 columns, not
+    # 16 rows
+    "dw_k_step_by_columns": ("gmm", "grouped_matmul.cu",
+                             "wgmma_256(acc, sw128_desc(a + k * 16 * kRowBytes), "
+                             "sw128_desc(b + k * 16 * kRowBytes));",
+                             "wgmma_256(acc, sw128_desc(a + k * 32), sw128_desc(b + k * 32));"),
 }
 
 
@@ -1484,6 +1516,80 @@ def grouped_mm_yardstick(a, b, ends, want, dtype, dims, mm_args):
     return (lambda i: torch.mm(p, q)), f"torch.mm of the same FLOPs ({why})", None
 
 
+# The dw kernels' instantiations on the main path (bf16), by a piece of
+# their mangled names: dw_kernel<__nv_bfloat16, SCALED>.
+DW_INSTANCES = {"k7a": "dw_kernelI13__nv_bfloat16Lb0E", "k7b": "dw_kernelI13__nv_bfloat16Lb1E"}
+
+
+def sass_counts(lib, marks=("HGMMA", "UTMALDG", "UBLKCP")):
+    """{kernel (mangled): {mark: instructions}} from ``cuobjdump -sass`` of
+    the built library ``lib``: HGMMA is wgmma, UTMALDG a TMA tensor load,
+    UBLKCP a bulk copy. cuobjdump ships with the CUDA toolkit; without it
+    this raises."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(Path(tool).exists(), "cuobjdump not found: the SASS counts need the CUDA toolkit")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            counts[name] = dict.fromkeys(marks, 0)
+        elif name is not None:
+            for mark in marks:
+                counts[name][mark] += mark in line
+    return counts
+
+
+def ptxas_usage(log):
+    """{kernel (mangled): registers and spill bytes} from nvcc's -Xptxas -v
+    output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name]["spill_stores"], out[name]["spill_loads"] = int(m[1]), int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m[1])
+    return out
+
+
+def dw_build_facts(key, rows, k, n):
+    """What the dw kernel ``key`` (DW_INSTANCES) is, from its build: its
+    SASS's wgmma and TMA instruction counts (each must be above zero), its
+    registers and spills from the build log, its tile and the operand bytes
+    a launch streams into the SMs at ``rows`` computed rows and a k x n
+    dw."""
+    piece = DW_INSTANCES[key]
+    sass = [c for fn, c in sass_counts(_build._lib_path("grouped_matmul")).items()
+            if piece in fn]
+    check(len(sass) == 1, f"{key}: {len(sass)} kernels named *{piece}* in the SASS")
+    sass = sass[0]
+    check(sass["HGMMA"] > 0 and sass["UTMALDG"] + sass["UBLKCP"] > 0,
+          f"{key}: no wgmma or no TMA in its SASS: {sass}")
+    log = _build.build_log.get("grouped_matmul")
+    if log is None:  # the library came from an earlier run: build it again for ptxas's report
+        again = _build.BUILD_DIR / "ptxas_report"
+        again.mkdir(parents=True, exist_ok=True)
+        log = _build.build_log["grouped_matmul"] = _build.compile_sources(
+            {"grouped_matmul": (_build.CSRC / "grouped_matmul.cu",
+                                again / "grouped_matmul.so")})["grouped_matmul"]
+    usage = [u for fn, u in ptxas_usage(log[1]).items() if piece in fn]
+    check(len(usage) == 1, f"{key}: {len(usage)} kernels named *{piece}* in the build log")
+    tm, tn = gm.GMM_DW_TILE
+    tiles = -(-k // tm) * -(-n // tn)
+    return {"sass": sass, "ptxas": usage[0], "tile": [tm, tn],
+            "operand_bytes": rows * tiles * (tm + tn) * 2}
+
+
 def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
     """K5, K6, K7a and K7b (and K5's dx use) at the moe_train shapes: b 16
     x t 512 = 8192 top-1 choices over 8 experts in 256-row blocks (10240
@@ -1532,6 +1638,7 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
                   (dy_up, w_up.transpose(1, 2)), (dy_up, w_up[0].t()), 2 * rows * f * d,
                   R * f * e2 + E * d * f * e2 + R * d * e2 + be.numel() * 4, (-1,)),
     }
+    hs_scale = s.to(bf)[:, None]
     out = {}
     for name, (kern, plain, lib_ab, mm_args, ops, nbytes, dims) in specs.items():
         got, want = kern(0), plain(0).float()
@@ -1544,10 +1651,15 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
         lib, label, lib_err = grouped_mm_yardstick(*lib_ab, ends, want, bf, dims, mm_args)
         if name == "k6":
             label += ", without the row scale"
+        fns = [("kernel", kern), ("plain", plain), ("library", lib)]
+        if name == "k7b" and label.startswith("torch._grouped_mm"):
+            # the function K7b computes, in two calls: scale, then the product
+            label += ", on x scaled before the timing"
+            fns.append(("library_two_call", lambda i: torch._grouped_mm(
+                (h * hs_scale).t(), dy_down, offs=ends)))
         del got, want
         ms, source, runs = timed_in_turns(
-            [("kernel", kern), ("plain", plain), ("library", lib)],
-            {"kernel": 20, "plain": 3, "library": 20})
+            fns, {"kernel": 20, "plain": 3, "library": 20, "library_two_call": 20})
         ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = {
             "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
@@ -1558,6 +1670,16 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
             "tflops": ops / ms["kernel"] / 1e9, "max_abs_err": float(err.max()),
             "ms_source": source, "runs": runs,
         }
+        if "library_two_call" in ms:
+            out[name]["library_two_call_ms"] = ms["library_two_call"]
+            out[name]["library_two_call"] = ("(h * s) in bf16, then torch._grouped_mm on the "
+                                             "same expert groups")
+        if name in DW_INSTANCES:
+            out[name].update(dw_build_facts(name, rows, *((d, f) if name == "k7a" else (f, d))))
+            # the call's device time: the dw kernel, and the block lists'
+            # PyTorch ops (_expert_block_lists) the wrapper runs before it
+            out[name]["dw_kernel_ms"], out[name]["block_lists_ms"] = device_ms_split(
+                kern, 20, "dw_kernel")
     emit({"phase": "gmm_timing", "shape": {"tokens": tokens, "experts": E, "block_rows": B,
                                            "rows": R, "computed_rows": rows, "d": d, "f": f,
                                            "dtype": "bfloat16"},

@@ -168,22 +168,33 @@ def test_flash_kernel_refuses_unsupported(dev):
         fa.flash_attention(q, k, v, causal=True)
 
 
-def _mixed_case(dev, dtype, scaled, seed=31, k=264, n=200):
-    """Sentinel blocks, experts 1, 3 and 4 without blocks, interleaved
-    blocks of experts 0, 2 and 5, widths off the tile grid."""
-    be = torch.tensor(GMM_MIXED_MAP, dtype=torch.int32, device=dev)
+# Every non-sentinel block belongs to expert 2: the longest walk a map of
+# 16 blocks allows (13 blocks, 52 stages of the dw kernel's 4-stage ring).
+GMM_ONE_EXPERT_MAP = (2, -1, 2, 2, 2, -1, 2, 2, 2, 2, 2, -1, 2, 2, 2, 2)
+GMM_MAPS = {"mixed": (GMM_MIXED_MAP, (1, 3, 4)),
+            "one_expert": (GMM_ONE_EXPERT_MAP, (0, 1, 3, 4, 5))}
+
+
+def _mixed_case(dev, dtype, scaled, seed=31, k=264, n=200, block_map="mixed"):
+    """Sentinel blocks and experts without blocks: by default (GMM_MIXED_MAP)
+    experts 1, 3 and 4 without blocks and interleaved blocks of experts 0,
+    2 and 5; widths off the tile grid."""
+    blocks, empty = GMM_MAPS[block_map]
+    be = torch.tensor(blocks, dtype=torch.int32, device=dev)
     gen = torch.Generator(dev).manual_seed(seed)
-    return gmm_case(gen, be, k, n, 6, dtype, dev, scaled=scaled, empty=(1, 3, 4))
+    return gmm_case(gen, be, k, n, 6, dtype, dev, scaled=scaled, empty=empty)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("scaled", [False, True], ids=["plain", "row_scale"])
 @pytest.mark.parametrize("k,n", [(264, 200), (128, 384)])
-def test_gmm_kernels_match_plain(dev, dtype, scaled, k, n):
+@pytest.mark.parametrize("block_map", sorted(GMM_MAPS))
+def test_gmm_kernels_match_plain(dev, dtype, scaled, k, n, block_map):
     """K5 or K6, K5 on w^T and K7a or K7b against their plain versions on
-    ragged and sentinel block maps; sentinel rows and the dw of experts
-    without blocks exactly zero; each kernel launched as counted."""
-    c = _mixed_case(dev, dtype, scaled, k=k, n=n)
+    ragged and sentinel block maps, one of them with every block in one
+    expert (the dw ring wraps many times); sentinel rows and the dw of
+    experts without blocks exactly zero; each kernel launched as counted."""
+    c = _mixed_case(dev, dtype, scaled, k=k, n=n, block_map=block_map)
     before = (gm.gmm_fwd_launches, gm.gmm_fwd_scaled_launches, gm.gmm_dw_launches,
               gm.gmm_dw_scaled_launches)
     errs = compare_gmm(c)
@@ -197,15 +208,16 @@ def test_gmm_kernels_match_plain(dev, dtype, scaled, k, n):
     dw = gm.gmm_dw_kernel(c["x"], c["dy"], c["be"], 6, c["s"], block_rows=256)
     rows = (c["be"] < 0).repeat_interleave(256)
     assert bool((y[rows] == 0).all())
-    assert all(bool((dw[e] == 0).all()) for e in (1, 3, 4))
+    assert all(bool((dw[e] == 0).all()) for e in c["empty"])
 
 
 @pytest.mark.parametrize("name", sorted(GMM_PLANTS))
 def test_gmm_check_fails_on_planted_fault(dev, name):
     """A copy of the grouped-matmul source with one planted fault (a
     sentinel block computed, a dw walk short of its last block, the
-    neighbouring expert's weights) fails the check the real kernels
-    pass, in both types."""
+    neighbouring expert's weights, K7b's scale from the next row, the dw
+    products stepping by columns) fails the check the real kernels pass,
+    in both types."""
     lib = build_plants([name], GMM_PLANTS)[name]
     for dtype in (torch.bfloat16, torch.float32):
         cases = [_mixed_case(dev, dtype, scaled) for scaled in (False, True)]

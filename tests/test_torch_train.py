@@ -148,22 +148,44 @@ def test_adamw_trajectory_matches_jax_trainer(setup, accum):
     assert got[-1] < got[0] - 1e-3
 
 
-def test_schedules_match_optax():
-    """constant, linear warmup and warmup-cosine at optax's update counts."""
-    for over in ({}, {"warmup_steps": 4}, {"lr_schedule": "cosine", "warmup_steps": 3,
-                                           "total_steps": 20}):
-        conf = dict(learning_rate=1e-3, **over)
-        jcfg = JaxTrainerConfig(**conf)
+@pytest.mark.parametrize("over", [
+    {}, {"warmup_steps": 4}, {"lr_schedule": "cosine", "warmup_steps": 3, "total_steps": 20},
+    # cosine edges: optax refuses total_steps <= max(warmup_steps, 1)
+    {"lr_schedule": "cosine", "warmup_steps": 10, "total_steps": 5},
+    {"lr_schedule": "cosine", "warmup_steps": 4, "total_steps": 4},
+    {"lr_schedule": "cosine", "warmup_steps": 0, "total_steps": 1},
+    {"lr_schedule": "cosine", "warmup_steps": 0, "total_steps": 2},
+], ids=["constant", "warmup", "cosine", "cosine_w10_t5", "cosine_w4_t4", "cosine_w0_t1",
+        "cosine_w0_t2"])
+def test_schedules_match_optax(over):
+    """constant, linear warmup and warmup-cosine at optax's update counts:
+    the JAX _make_tx and the port's Trainer both refuse a config, or the
+    port's lr equals optax's at every count."""
+    conf = dict(learning_rate=1e-3, **over)
+    jcfg = JaxTrainerConfig(**conf)
+    cfg = TrainerConfig(**conf)
+    make = lambda: Trainer(lambda *a: None, lambda g: {}, cfg, device="cpu")  # noqa: E731
+    try:
         if jcfg.lr_schedule == "cosine":
-            sched = optax.warmup_cosine_decay_schedule(0.0, 1e-3, 3, 20)
+            sched = optax.warmup_cosine_decay_schedule(
+                0.0, 1e-3, max(jcfg.warmup_steps, 1), jcfg.total_steps)
         elif jcfg.warmup_steps:
-            sched = optax.linear_schedule(0.0, 1e-3, 4)
+            sched = optax.linear_schedule(0.0, 1e-3, jcfg.warmup_steps)
         else:
             sched = lambda c: 1e-3  # noqa: E731
-        for count in range(0, 25):
-            assert learning_rate_at(TrainerConfig(**conf), count) == pytest.approx(
-                float(sched(count)), rel=1e-6, abs=1e-12), (over, count)
-        assert _make_tx(jcfg) is not None
+    except ValueError:
+        with pytest.raises(ValueError):
+            _make_tx(jcfg)
+        with pytest.raises(ValueError, match="cosine schedule"):
+            make()
+        with pytest.raises(ValueError, match="cosine schedule"):
+            learning_rate_at(cfg, jcfg.warmup_steps + 1)
+        return
+    assert _make_tx(jcfg) is not None
+    make()
+    for count in range(0, 26):
+        assert learning_rate_at(cfg, count) == pytest.approx(
+            float(sched(count)), rel=1e-6, abs=1e-12), (over, count)
 
 
 def test_flop_accounting_matches_jax_and_peak_table():

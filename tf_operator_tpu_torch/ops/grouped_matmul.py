@@ -18,7 +18,9 @@ block whose output rows are zeros and cost no product.
   epilogue that carries the MoE combine's gate weights), ``gmm_dw`` for
   ``_dw_kernel`` (K7a) and ``gmm_dw_scaled`` for ``_dw_scaled_kernel``
   (K7b). The dx use reads ``w[e]`` in place as ``w[e]^T`` (no transposed
-  copy of the weights, where the JAX rule swaps the axes first).
+  copy of the weights, where the JAX rule swaps the axes first). The dw
+  kernels stream x and dy through TMA into ``wgmma``; their C entries
+  encode the tensor maps from the pointers and shapes given here.
 - ``_expert_block_lists``: the dw walk's per-expert block lists, as torch
   ops on the tensors' device (no host sync).
 
@@ -39,6 +41,10 @@ import torch
 # tiles that must not straddle a routing block, and 16-byte loads of both
 # operands' rows.
 GMM_TILE_ROWS = 128
+# The dw kernels' output tile: rows (x's columns) x columns (dy's); the
+# most experts their item plan holds.
+GMM_DW_TILE = (128, 256)
+GMM_DW_MAX_EXPERTS = 1024
 GMM_DTYPES = (torch.bfloat16, torch.float32)
 
 # Launches of each CUDA kernel in this process.
@@ -98,16 +104,18 @@ def _expert_block_lists(block_expert, n_experts: int, nb: int):
     blist [E * nb] int32, blist[e * nb + l] the l-th block of expert e, the
     entries past its count repeating its last block). Sentinel (-1) blocks
     belong to no expert. Torch ops on block_expert's device, no host sync
-    (the count is a scatter-add, not bincount, which reads its max)."""
-    be = block_expert.long()
-    bucket = torch.where(be >= 0, be, n_experts)  # sentinels into a spare bucket
-    order = torch.sort(bucket, stable=True).indices
-    cnt = torch.zeros(n_experts + 1, dtype=torch.long, device=be.device)
-    cnt = cnt.scatter_add_(0, bucket, torch.ones_like(bucket))[:n_experts]
-    starts = cnt.cumsum(0) - cnt
-    walk = torch.minimum(torch.arange(nb, device=be.device)[None, :],
-                         (cnt[:, None] - 1).clamp(min=0))
-    idx = (starts[:, None] + walk).clamp(0, nb - 1)
+    (the counts come from searchsorted, not bincount, which reads its max)."""
+    dev = block_expert.device
+    bucket = block_expert.remainder(n_experts + 1)  # sentinels (-1) into a spare bucket
+    keys, order = torch.sort(bucket, stable=True)
+    # where each bucket starts in the sorted order: blocks of expert e are
+    # order[starts[e]:ends[e]]
+    edges = torch.searchsorted(keys, torch.arange(n_experts + 1, device=dev, dtype=keys.dtype))
+    starts, ends = edges[:-1], edges[1:]
+    cnt = ends - starts
+    last = torch.maximum(starts, ends - 1)  # the walk's last entry repeats
+    idx = torch.minimum(starts[:, None] + torch.arange(nb, device=dev), last[:, None])
+    idx = idx.clamp(max=nb - 1)
     return cnt.to(torch.int32), order[idx].reshape(-1).to(torch.int32)
 
 
@@ -187,6 +195,8 @@ def check_dw_args(x, dy, block_expert, row_scale, block_rows) -> tuple:
     N = dy.shape[1]
     if K % 8 or N % 8:
         raise ValueError(f"{name} kernel: k {K} and n {N} must be multiples of 8")
+    if row_scale is not None and row_scale.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: row_scale must be 16-byte aligned")
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {x.device}")
     return R, K, N
@@ -223,6 +233,8 @@ def _gmm_fn(name: str):
 def _call(name, x, *args) -> None:
     with torch.cuda.device(x.device):
         err = _gmm_fn(name)(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"{name} kernel: encoding a TMA tensor map failed: CUresult {-err}")
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
@@ -256,8 +268,9 @@ def gmm_dw_kernel(x, dy, block_expert, n_experts: int, row_scale=None, *,
     _expert_block_lists on the device. Same contract as gmm_dw_reference."""
     global gmm_dw_launches, gmm_dw_scaled_launches
     R, K, N = check_dw_args(x, dy, block_expert, row_scale, block_rows)
-    if n_experts <= 0:
-        raise ValueError(f"gmm_dw kernel: n_experts {n_experts} must be positive")
+    if not 0 < n_experts <= GMM_DW_MAX_EXPERTS:
+        raise ValueError(f"gmm_dw kernel: n_experts {n_experts} must be in "
+                         f"[1, {GMM_DW_MAX_EXPERTS}]")
     dw = torch.empty(n_experts, K, N, dtype=torch.float32, device=x.device)
     if R == 0:
         return dw.zero_()

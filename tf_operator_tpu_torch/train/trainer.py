@@ -84,11 +84,23 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def check_schedule(cfg: TrainerConfig) -> None:
+    """Raise ValueError on a schedule the JAX _make_tx refuses: a cosine
+    config with total_steps <= max(warmup_steps, 1), where
+    optax.warmup_cosine_decay_schedule leaves no step for the decay."""
+    if cfg.lr_schedule == "cosine" and cfg.total_steps <= max(cfg.warmup_steps, 1):
+        raise ValueError(
+            f"cosine schedule needs total_steps > max(warmup_steps, 1), got "
+            f"total_steps={cfg.total_steps}, warmup_steps={cfg.warmup_steps}")
+
+
 def learning_rate_at(cfg: TrainerConfig, count: int) -> float:
     """The schedule of the JAX _make_tx at optax's update count (0 first):
-    constant; linear warmup from 0; or warmup then cosine decay to 0."""
+    constant; linear warmup from 0; or warmup then cosine decay to 0.
+    Raises ValueError where check_schedule does."""
     lr = cfg.learning_rate
     if cfg.lr_schedule == "cosine":
+        check_schedule(cfg)
         warm = max(cfg.warmup_steps, 1)
         if count < warm:
             return _f32(lr * count / warm)
@@ -108,6 +120,7 @@ class Trainer:
         self.config = config if config is not None else TrainerConfig()
         if self.config.optimizer not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {self.config.optimizer!r}")
+        check_schedule(self.config)
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.device = resolve_device(device)
