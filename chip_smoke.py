@@ -881,16 +881,27 @@ def phase_flash_check(dev, cases_spec=FLASH_CHECK_CASES):
 
 
 # Faults planted in copies of the kernel sources: (kernel, source, the
-# line as it is, the line with the fault). Each must make the check fail.
+# line as it is, the line with the fault; or a tuple of lines and one of
+# faults, planted together). Each must make the check fail.
 FLASH_PLANTS = {
-    # key tile 0 dropped for the last 64 query rows (1 of 32 at t = 2048)
+    # key tile 0 dropped for the last 64 query rows (1 of 32 at t = 2048);
+    # the mask then runs on every tile, not only those that cross the
+    # diagonal or t
     "fwd_drop_tile": ("fwd", "flash_fwd.cu",
-                      "if (col >= t || (causal && col > row)) x = kNegInf;",
-                      "if (col >= t || (causal && col > row) || (row >= t - 64 && col < 64)) "
-                      "x = kNegInf;"),
+                      ("const bool edge = k0 + KT > t || (causal && k0 + KT - 1 > pw);",
+                       "if (col >= t || (causal && col > row)) s[4 * n + e] = kNegInf;"),
+                      ("const bool edge = true;",
+                       "if (col >= t || (causal && col > row) || (row >= t - 64 && col < 64)) "
+                       "s[4 * n + e] = kNegInf;")),
     # the causal mask lets each row see one key past its own
     "fwd_mask_off_by_one": ("fwd", "flash_fwd.cu", "(causal && col > row)",
                             "(causal && col > row + 1)"),
+    # the K-major descriptors of q.k^T step 16 bytes along the swizzled row
+    # a depth step of 16, not 32
+    "fwd_qk_k_step": ("fwd", "flash_fwd.cu", "return (kk >> 2) * box + (kk & 3) * 32;",
+                      "return (kk >> 2) * box + (kk & 3) * 16;"),
+    # p.v steps through V's MN-major boxes by 16 columns, not 16 rows
+    "fwd_pv_v_step": ("fwd", "flash_fwd.cu", "return kk * 16 * kRowBytes;", "return kk * 32;"),
     # key tile 0 dropped from dq for the last 64 query rows
     "dq_drop_tile": ("dq", "flash_bwd.cu",
                      "const bool live = row < t && col < t && !(causal && col > row);",
@@ -942,10 +953,14 @@ def plant_jobs(names, plants):
         shutil.copyfile(header, out / header.name)
     jobs, libs = {}, {}
     for name in names:
-        _, src, line, fault = plants[name]
+        _, src, lines, faults = plants[name]
+        if isinstance(lines, str):
+            lines, faults = (lines,), (faults,)
         text = (_build.CSRC / src).read_text()
-        check(text.count(line) == 1, f"plant {name}: the line occurs {text.count(line)} times")
-        text = text.replace(line, fault)
+        for line, fault in zip(lines, faults):
+            check(text.count(line) == 1,
+                  f"plant {name}: the line occurs {text.count(line)} times: {line}")
+            text = text.replace(line, fault)
         tag = hashlib.sha256(text.encode() + b"".join(
             h.read_bytes() for h in sorted(_build.CSRC.glob("*.cuh")))).hexdigest()[:16]
         libs[name] = out / f"{name}-{tag}.so"
@@ -1293,12 +1308,40 @@ def phase_flash_timing(smi, b=6, t=2048, h=16, h_kv=4, d=128, dev="cuda"):
         }
         if "library_bwd" in ms:  # SDPA's backward: dq, dk and dv in one call
             out["library_bwd_all_ms"] = ms["library_bwd"]
+    out["fwd_build"] = fwd_build_facts()
+    out["fwd_moe_shape"] = fwd_timing_at(rng, 16, 512, 12, 12, 64, dev)
     emit({"phase": "flash_timing", "shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d,
                                              "dtype": "bfloat16", "causal": True},
           "library": "scaled_dot_product_attention(is_causal, enable_gqa) on [b, h, t, d]; "
                      "its backward computes dq, dk and dv together",
           "library_max_abs_err_vs_plain": lib_err, "card": smi, **out})
     return out
+
+
+def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
+    """K1 alone at another shape (bf16, causal): checked against its plain
+    version, then timed beside SDPA's forward and its bound."""
+    q, k, v, _, _ = flash_case(rng, b, t, h, h_kv, d, torch.bfloat16, dev)
+    o, _ = fa.flash_fwd_kernel(q, k, v, True)
+    o_ref = fa.flash_fwd_reference(q.float(), k.float(), v.float(), True)[0]
+    err = (o.float() - o_ref).abs()
+    check(bool((err <= flash_limit("o", o_ref, torch.bfloat16)).all()),
+          f"flash fwd at b{b} t{t} h{h}/{h_kv} d{d}: max abs err {float(err.max())}")
+    del o_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms, source, runs = timed_in_turns(
+        [("kernel", lambda i: fa.flash_fwd_kernel(q, k, v, True)),
+         ("library", lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=h_kv != h))],
+        {"kernel": 20, "library": 20})
+    ops = 4 * d * (b * h * t * (t + 1) // 2)
+    nbytes = (2 * h + 2 * h_kv) * b * t * d * 2 + b * h * t * 4  # q, k, v, o; lse
+    ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d}, "ms": ms["kernel"],
+            "library_ms": ms["library"], "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "tflops": ops / ms["kernel"] / 1e9, "max_abs_err": float(err.max()),
+            "ms_source": source, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -1524,8 +1567,8 @@ DW_INSTANCES = {"k7a": "dw_kernelI13__nv_bfloat16Lb0E", "k7b": "dw_kernelI13__nv
 def sass_counts(lib, marks=("HGMMA", "UTMALDG", "UBLKCP")):
     """{kernel (mangled): {mark: instructions}} from ``cuobjdump -sass`` of
     the built library ``lib``: HGMMA is wgmma, UTMALDG a TMA tensor load,
-    UBLKCP a bulk copy. cuobjdump ships with the CUDA toolkit; without it
-    this raises."""
+    UBLKCP a bulk copy, HMMA an mma.sync. cuobjdump ships with the CUDA
+    toolkit; without it this raises."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1562,32 +1605,57 @@ def ptxas_usage(log):
     return out
 
 
+def build_facts(lib, piece, marks=("HGMMA", "UTMALDG", "UBLKCP")):
+    """(SASS instruction counts, ptxas registers and spills) of the one
+    kernel of library ``lib`` (a name in _build.KERNELS) whose mangled name
+    holds ``piece``; the build log from this process's build, or from a
+    build made again for ptxas's report."""
+    sass = [c for fn, c in sass_counts(_build._lib_path(lib), marks).items() if piece in fn]
+    check(len(sass) == 1, f"{piece}: {len(sass)} kernels named so in the SASS of {lib}")
+    log = _build.build_log.get(lib)
+    if log is None:  # the library came from an earlier run: build it again for ptxas's report
+        again = _build.BUILD_DIR / "ptxas_report"
+        again.mkdir(parents=True, exist_ok=True)
+        log = _build.build_log[lib] = _build.compile_sources(
+            {lib: (_build.CSRC / f"{lib}.cu", again / f"{lib}.so")})[lib]
+    usage = [u for fn, u in ptxas_usage(log[1]).items() if piece in fn]
+    check(len(usage) == 1, f"{piece}: {len(usage)} kernels named so in the build log of {lib}")
+    return sass[0], usage[0]
+
+
 def dw_build_facts(key, rows, k, n):
     """What the dw kernel ``key`` (DW_INSTANCES) is, from its build: its
     SASS's wgmma and TMA instruction counts (each must be above zero), its
     registers and spills from the build log, its tile and the operand bytes
     a launch streams into the SMs at ``rows`` computed rows and a k x n
     dw."""
-    piece = DW_INSTANCES[key]
-    sass = [c for fn, c in sass_counts(_build._lib_path("grouped_matmul")).items()
-            if piece in fn]
-    check(len(sass) == 1, f"{key}: {len(sass)} kernels named *{piece}* in the SASS")
-    sass = sass[0]
+    sass, usage = build_facts("grouped_matmul", DW_INSTANCES[key])
     check(sass["HGMMA"] > 0 and sass["UTMALDG"] + sass["UBLKCP"] > 0,
           f"{key}: no wgmma or no TMA in its SASS: {sass}")
-    log = _build.build_log.get("grouped_matmul")
-    if log is None:  # the library came from an earlier run: build it again for ptxas's report
-        again = _build.BUILD_DIR / "ptxas_report"
-        again.mkdir(parents=True, exist_ok=True)
-        log = _build.build_log["grouped_matmul"] = _build.compile_sources(
-            {"grouped_matmul": (_build.CSRC / "grouped_matmul.cu",
-                                again / "grouped_matmul.so")})["grouped_matmul"]
-    usage = [u for fn, u in ptxas_usage(log[1]).items() if piece in fn]
-    check(len(usage) == 1, f"{key}: {len(usage)} kernels named *{piece}* in the build log")
     tm, tn = gm.GMM_DW_TILE
     tiles = -(-k // tm) * -(-n // tn)
-    return {"sass": sass, "ptxas": usage[0], "tile": [tm, tn],
+    return {"sass": sass, "ptxas": usage, "tile": [tm, tn],
             "operand_bytes": rows * tiles * (tm + tn) * 2}
+
+
+# The forward kernel's instantiations, fwd_kernel<T, DP> (DP: d padded to
+# 64 or 128), by a piece of their mangled names.
+FWD_INSTANCES = {"bf16_dp128": "fwd_kernelI13__nv_bfloat16Li128EE",
+                 "bf16_dp64": "fwd_kernelI13__nv_bfloat16Li64EE",
+                 "f32_dp128": "fwd_kernelIfLi128EE", "f32_dp64": "fwd_kernelIfLi64EE"}
+
+
+def fwd_build_facts():
+    """K1's instantiations from their build: wgmma (HGMMA) and TMA
+    (UTMALDG) instructions, each above zero, no mma.sync (HMMA), and their
+    registers and spill bytes."""
+    out = {}
+    for key, piece in FWD_INSTANCES.items():
+        sass, usage = build_facts("flash_fwd", piece, ("HGMMA", "UTMALDG", "HMMA"))
+        check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["HMMA"] == 0,
+              f"flash fwd {key}: not a TMA + wgmma kernel by its SASS: {sass}")
+        out[key] = {"sass": sass, "ptxas": usage}
+    return out
 
 
 def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
@@ -2195,6 +2263,11 @@ def main() -> int:
             # no library call computes dq (or dk, dv) alone; SDPA's backward
             # computes all three in one call, timed here as a yardstick
             kernels[-1]["library_bwd_all_ms"] = ft["library_bwd_all_ms"]
+        else:
+            # moe-small's attention shape, which its path launches 24 times
+            # a step too
+            m = ft["fwd_moe_shape"]
+            kernels[-1]["moe_shape"] = {x: m[x] for x in ("shape", "ms", "library_ms", "bound_ms")}
     for key, name, line, counter in (
             ("k5", "gmm_fwd", 122, "gmm_fwd_launches"),
             ("k6", "gmm_fwd_scaled", 144, "gmm_fwd_scaled_launches"),

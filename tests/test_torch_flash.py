@@ -118,6 +118,16 @@ def test_flash_wrapper_checks_refuse_bad_arguments(monkeypatch):
         for dt in (torch.bfloat16, torch.float32):
             assert fa.flash_smem_bytes(kind, dt, fa.FLASH_MAX_D) <= fa.FLASH_MAX_SMEM
     assert fa.flash_smem_bytes("dkv", torch.float32, 16) == 6 * 2 * 64 * 24 * 2 + 4 * 64 * 4
+    # the forward: 256-byte rows at d 128 (two 64-column boxes), Q's 2 x 64
+    # rows in two buffers, K's and V's 64 keys in five stages, 14
+    # mbarriers, 1024 to align; f32 keeps one Q in hi and lo planes, lands
+    # one f32 stage and splits it into K/V planes, 4 mbarriers
+    assert fa.flash_smem_bytes("fwd", torch.bfloat16, 128) == (
+        2 * (2 * 64 * 256) + 5 * (2 * 64 * 256) + 14 * 8 + 1024)
+    assert fa.flash_smem_bytes("fwd", torch.float32, 128) == (
+        2 * (2 * 64 * 256) + 2 * (2 * 64 * 256) + 2 * (2 * 64 * 256) + 4 * 8 + 1024)
+    assert fa.flash_smem_bytes("fwd", torch.bfloat16, 16) == (
+        2 * (2 * 64 * 128) + 5 * (2 * 64 * 128) + 14 * 8 + 1024)
     monkeypatch.setattr(fa, "FLASH_MAX_SMEM", fa.flash_smem_bytes("fwd", torch.float32, 16) - 1)
     with pytest.raises(ValueError, match="shared memory"):
         fa.flash_fwd_kernel(q, k, v, True)

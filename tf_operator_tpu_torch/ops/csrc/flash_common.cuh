@@ -1,4 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Pieces shared by the flash-attention backward kernels (flash_bwd.cu),
+// which the grouped-matmul forward (K5, K6) and K8 borrow; the forward
+// kernel (flash_fwd.cu, TMA + wgmma) takes only the constants, the bf16
+// packing and the f32 split from here.
 //
 // One kernel per function, templated on the element type T and the head
 // dimension D (16..128, so the register arrays have fixed sizes). Every
@@ -53,7 +56,6 @@ constexpr int kMmaTile = 64;  // rows of a block's tile; 4 warps x 16 rows
 // Scores are kept in log2 units (scale * log2(e) folded into one
 // multiply) so each exponential is a single exp2.
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int mma_ld(int d) { return d + 8; }  // bf16 tile row, elements
 

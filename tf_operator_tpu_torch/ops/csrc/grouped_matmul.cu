@@ -80,10 +80,10 @@
 // forms no kernel instantiates now); items smaller than a whole walk, so
 // that the last round does not leave blocks idle.
 
-#include <cuda.h>  // CUtensorMap and the encode's types (the driver is not linked)
 #include <climits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace gmm {
 namespace {
@@ -403,124 +403,30 @@ struct DwLayout {
   static constexpr int bytes = plan + 4 * (2 * kMaxExperts + 2 * kMaxBlocks + kMaxRounds) + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-// Returns once the phase of barrier `bar` with this parity has completed.
-// A wait that never ends (a walk the two roles disagree on) traps after
-// ~2^24 polls, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i > (1 << 24)) __trap();
-  }
-}
-
-// The box at (col, row) of a 2-D tensor map into shared memory at dst,
-// completing on bar; columns past the tensor's are zeros.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, uint32_t bar,
-                                        int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(row)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads of the sums above a wgmma_wait.
-__device__ __forceinline__ void fence_acc(float* acc) {
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
+using hopper::bar_sync;
+using hopper::fence_async_smem;
+using hopper::mbar_arrive;
+using hopper::mbar_expect;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::tma_box;
+using hopper::bulk_copy;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
 // wgmma descriptor of a 64-row (reduction) x 64k-wide tile of bf16 boxes
 // at shared address addr, MN-major with the 128-byte swizzle: each row of
 // a box is 128 bytes of one reduction index; the next 8 rows start 1024
 // bytes on (SBO); the next 64 columns, in the next box, 8192 bytes on (LBO).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(kPlaneBox >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+  return hopper::sw128_desc(addr, kPlaneBox, 1024);
 }
 
-// d (the 64 x 256 f32 sums of a warpgroup) += A . B, A 64 x 16 and B 16 x
-// 256 read by descriptor, both MN-major (trans-a = trans-b = 1).
+// d (the 64 x kTN f32 sums of a warpgroup) += A . B, A 64 x 16 and B 16 x
+// kTN read by descriptor, both MN-major (trans-a = trans-b = 1).
 __device__ __forceinline__ void wgmma_256(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
-        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
-        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+  hopper::Wgmma<kTN>::ss<1, 1>(d, a, b, 1);
 }
 
 // acc += (x box)^T . (dy boxes) over one stage: a is the warpgroup's x box,
@@ -638,21 +544,9 @@ __device__ __forceinline__ void scale_box(unsigned char* box, const float* ss, i
 template <bool SCALED>
 __device__ __forceinline__ void split_stage(const unsigned char* stage, unsigned char* hi,
                                             unsigned char* lo, const float* ss, int t) {
-  for (int q = t; q < kBoxes * kDepth * 8; q += 256) {
-    const int b = q / (kDepth * 8), r = (q / 8) % kDepth, c = q % 8;
-    const float4* src =
-        reinterpret_cast<const float4*>(stage + ((b * kDepth + r) * kBox + c * 8) * 4);
-    const float4 u = src[0], v = src[1];
-    const float sc = b < kXBoxes ? scale_of<SCALED>(ss, r) : 1.f;
-    uint4 h, l;
-    flash::split_pack(u.x * sc, u.y * sc, h.x, l.x);
-    flash::split_pack(u.z * sc, u.w * sc, h.y, l.y);
-    flash::split_pack(v.x * sc, v.y * sc, h.z, l.z);
-    flash::split_pack(v.z * sc, v.w * sc, h.w, l.w);
-    const int off = b * kPlaneBox + r * kRowBytes + ((c ^ (r & 7)) << 4);
-    *reinterpret_cast<uint4*>(hi + off) = h;
-    *reinterpret_cast<uint4*>(lo + off) = l;
-  }
+  hopper::split_boxes(stage, hi, lo, kBoxes, kDepth, t, 256, [&](int b, int r) {
+    return b < kXBoxes ? scale_of<SCALED>(ss, r) : 1.f;
+  });
 }
 
 // dw[e] [K, N] f32 = sum over the blocks of expert e (the first nblocks[e]
@@ -760,7 +654,7 @@ dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUte
       }
     }
     wgmma_wait<0>();
-    fence_acc(acc);
+    hopper::fence_regs<kAcc>(acc);
     if (!kSplit && w.steps > 0 && t == 0) mbar_arrive(empty + 8 * ((it - 1) % L::stages));
 
     // acc[4j .. 4j + 3]: rows g, g + 8 (g = 16 warp + lane / 4) of the
@@ -795,43 +689,15 @@ int fwd(const void* x, const void* w, const int* be, const float* s, void* y, in
                        static_cast<const T*>(w), be, s, static_cast<T*>(y), R, K, N, block_rows);
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (no -lcuda at build time).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The row-major [rows, cols] matrix at p as boxes of kDepth rows x kBox
 // columns: bf16 with the 128-byte swizzle wgmma reads, f32 as it is;
 // columns past cols read as zeros. 0, or minus the driver's CUresult.
 template <typename T>
 int encode_rows(CUtensorMap* map, const void* p, int rows, int cols) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return (int)cudaErrorNotSupported;
-  constexpr bool b16 = Planes<T>::value == 1;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
-  const cuuint32_t box[2] = {kBox, kDepth}, steps[2] = {1, 1};
-  const CUresult r =
-      fn(map, b16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-         const_cast<void*>(p), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         b16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
+  const cuuint32_t box[2] = {kBox, kDepth};
+  return hopper::encode(map, Planes<T>::value == 1, 2, p, dims, strides, box);
 }
 
 template <typename T, bool SCALED>

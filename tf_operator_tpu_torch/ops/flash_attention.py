@@ -201,12 +201,12 @@ flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
-# Kernel limits (keep in step with csrc/flash_common.cuh): square tiles of
-# FLASH_TILE rows, FLASH_TILE / 16 warps, head dims that are multiples of
-# 16 and at most FLASH_MAX_D (the per-warp tiles live in registers), and
-# at most FLASH_MAX_SMEM bytes of dynamic shared memory (the H100's
-# per-block opt-in limit). bf16 and f32 run the same kernels; f32 tiles
-# are stored as two bf16 planes (hi and lo).
+# Kernel limits (keep in step with csrc/flash_common.cuh and
+# csrc/flash_fwd.cu): the backward's square tiles of FLASH_TILE rows, head
+# dims that are multiples of 16 and at most FLASH_MAX_D (the tiles live in
+# registers), and at most FLASH_MAX_SMEM bytes of dynamic shared memory
+# (the H100's per-block opt-in limit). bf16 and f32 run the same kernels;
+# f32 tiles are stored as two bf16 planes (hi and lo).
 FLASH_TILE = 64
 FLASH_MAX_D = 128
 FLASH_MAX_SMEM = 232448
@@ -325,9 +325,21 @@ def flash_bwd_reference(q, k, v, o, lse, do, dlse, causal: bool):
 def flash_smem_bytes(kind: str, dtype: torch.dtype, d: int) -> int:
     """Dynamic shared memory of one block of kernel ``kind`` (``fwd``,
     ``dq``, ``dkv``); the formulas of csrc/flash_*.cu."""
-    # tiles [planes, 64, d + 8] bf16; K/V (or Q/dO) double-buffered
-    tile = FLASH_PLANES[dtype] * FLASH_TILE * (d + 8) * 2
-    return {"fwd": 5 * tile, "dq": 6 * tile, "dkv": 6 * tile + 4 * FLASH_TILE * 4}[kind]
+    planes = FLASH_PLANES[dtype]
+    if kind == "fwd":
+        # FwdLayout: bf16 boxes of 128-byte rows, d padded to 64 or 128
+        # columns; Q [2 warpgroups][64 rows] in two buffers (f32: its hi and
+        # lo planes); K and V [64 keys] a stage in the element type, 5
+        # stages (f32: 1, split into K/V planes); two mbarriers of 8 bytes a
+        # stage and a Q buffer; 1024 to align
+        row = (64 if d <= 64 else 128) // 64 * 128
+        q, kv = 2 * 64 * row, 2 * 64 * row
+        stages, qbufs = (1, 1) if planes == 2 else (5, 2)
+        split = 2 * kv if planes == 2 else 0
+        return 2 * q + stages * planes * kv + split + 2 * (stages + qbufs) * 8 + 1024
+    # tiles [planes, 64, d + 8] bf16; Q/dO (or K/V) double-buffered
+    tile = planes * FLASH_TILE * (d + 8) * 2
+    return {"dq": 6 * tile, "dkv": 6 * tile + 4 * FLASH_TILE * 4}[kind]
 
 
 def check_flash_args(kind, q, k, v, do=None, lse=None, delta=None) -> None:

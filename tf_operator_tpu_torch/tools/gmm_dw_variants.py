@@ -28,6 +28,9 @@ import statistics
 import sys
 from pathlib import Path
 
+# the widths hopper.cuh defines Wgmma<N> for
+HEADER_WIDTHS = (64, 128, 256)
+
 # The lines the variants replace, as they stand in the source.
 _PLAN = """  const int count = plan_items(reinterpret_cast<int*>(smem + L::plan), nblocks, E, tiles,
                                block_rows / kDepth);  // synchronises the block
@@ -50,36 +53,19 @@ _RELEASE = """        wgmma_wait<1>();
         if (step > 0 && t == 0) mbar_arrive(empty + 8 * ((it - 1) % L::stages));"""
 _LAST_RELEASE = (
     "    if (!kSplit && w.steps > 0 && t == 0) mbar_arrive(empty + 8 * ((it - 1) % L::stages));")
-_DESC = """((uint64_t)(kPlaneBox >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32)"""
-
-
-def _wgmma(n: int) -> str:
-    """wgmma_256's source with an m64n{n}k16 product (n / 2 sums a thread)."""
-    regs = n // 2
-    names = [f"%{i}" for i in range(regs)]
-    rows = [", ".join(names[i:i + 8]) for i in range(0, regs, 8)]
-    outs = ", ".join(f'"+f"(d[{i}])' for i in range(regs))
-    return ("__device__ __forceinline__ void wgmma_256(float* d, uint64_t a, uint64_t b) {\n"
-            "  asm volatile(\n"
-            f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{regs + 2}, 0;\\n"\n'
-            f'      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{"\n'
-            f'      "{", ".join(rows)}"\n'
-            f'      "}}, %{regs}, %{regs + 1}, p, 1, 1, 1, 1;\\n}}\\n"\n'
-            f"      : {outs}\n"
-            '      : "l"(a), "l"(b), "r"(1));\n'
-            "}\n")
+_DESC = "return hopper::sw128_desc(addr, kPlaneBox, 1024);"
+WIDTH = "WGMMA_WIDTH"
 
 
 def _narrow(n: int, stages: int) -> list:
     """A 128 x n tile (n / 64 dy boxes) with `stages` stages."""
     return [("constexpr int kTN = 256;", f"constexpr int kTN = {n};"),
             (_STAGES, _STAGES.replace("? 4 :", f"? {stages} :")),
-            ("WGMMA_256", _wgmma(n))]
+            (WIDTH, n)]
 
 
-# name -> [(text in the source, its replacement)]; "WGMMA_256" stands for
-# the whole of wgmma_256's definition.
+# name -> [(text in the source, its replacement)]; (WIDTH, n) defines
+# hopper::Wgmma<n> in the source where hopper.cuh does not.
 VARIANTS = {
     "design": [],
     # each block takes items blockIdx.x, blockIdx.x + gridDim.x, ... (no plan)
@@ -119,16 +105,18 @@ VARIANTS = {
           bar_sync(2 + wg, 128);
         }""")],
     # the descriptors' LBO and SBO swapped: must fail the check
-    "lbo_sbo_swapped": [(_DESC, """((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(kPlaneBox >> 4) << 32)""")],
+    "lbo_sbo_swapped": [(_DESC, "return hopper::sw128_desc(addr, 1024, kPlaneBox);")],
 }
 
 
 def variant_source(text: str, edits) -> str:
     for old, new in edits:
-        if old == "WGMMA_256":
-            start = text.index("__device__ __forceinline__ void wgmma_256(")
-            old = text[start:text.index("\n}\n", start) + 3]
+        if old == WIDTH:
+            if new not in HEADER_WIDTHS:
+                from tf_operator_tpu_torch.tools.wgmma_source import with_widths
+
+                text = with_widths(text, [new])
+            continue
         if text.count(old) != 1:
             raise ValueError(f"variant edit: the line occurs {text.count(old)} times: {old[:60]}")
         text = text.replace(old, new)
