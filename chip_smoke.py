@@ -919,15 +919,20 @@ FLASH_ENTRY = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
 # The same for the grouped-matmul source (phase gmm_plant).
 GMM_PLANTS = {
     # a sentinel block computes expert 0's product instead of writing zeros
-    "sentinel_computed": ("gmm", "grouped_matmul.cu", "const int e = be[m0 / block_rows];",
-                          "const int e = max(be[m0 / block_rows], 0);"),
+    # (the forward's expert read, which both of its roles take)
+    "sentinel_computed": ("gmm", "grouped_matmul.cu", "w.e = be[w.m0 / block_rows];",
+                          "w.e = max(be[w.m0 / block_rows], 0);"),
     # the dw walk skips the last block of every expert that has several
     "dw_skips_last_block": ("gmm", "grouped_matmul.cu", "const int steps = nblocks[e] * spb;",
                             "const int steps = (nblocks[e] > 1 ? nblocks[e] - 1 : nblocks[e]) "
                             "* spb;"),
-    # the forward reads the weights of the neighbouring expert (e xor 1)
-    "weight_of_neighbour": ("gmm", "grouped_matmul.cu", "const T* we = w + (size_t)e * K * N;",
-                            "const T* we = w + (size_t)(e ^ 1) * K * N;"),
+    # the forward reads the weights of the neighbouring expert (e xor 1):
+    # the outer coordinate of w's 3-D map
+    "weight_of_neighbour": ("gmm", "grouped_matmul.cu",
+                            "hopper::tma_box_3d(dst + (kXFBoxes + b) * L::box, wmap, bar, c0, c1, "
+                            "w.e);",
+                            "hopper::tma_box_3d(dst + (kXFBoxes + b) * L::box, wmap, bar, c0, c1, "
+                            "w.e ^ 1);"),
     # K7b multiplies each x row by the scale of the next row of its stage
     "dw_scale_next_row": ("gmm", "grouped_matmul.cu", "return SCALED ? ss[r] : 1.f;",
                           "return SCALED ? ss[(r + 1) % kDepth] : 1.f;"),
@@ -937,6 +942,20 @@ GMM_PLANTS = {
                              "wgmma_256(acc, sw128_desc(a + k * 16 * kRowBytes), "
                              "sw128_desc(b + k * 16 * kRowBytes));",
                              "wgmma_256(acc, sw128_desc(a + k * 32), sw128_desc(b + k * 32));"),
+    # the forward's K-major x descriptors step 16 bytes along the swizzled
+    # row a depth step of 16, not 32
+    "fwd_a_k_step": ("gmm", "grouped_matmul.cu",
+                     "const uint64_t ad = hopper::kmajor_desc(a + k * 32);",
+                     "const uint64_t ad = hopper::kmajor_desc(a + k * 16);"),
+    # the dx form reads its K-major w[e] boxes as MN-major
+    "fwd_dx_b_major": ("gmm", "grouped_matmul.cu",
+                       "hopper::Wgmma<kFN>::ss<0, TRANS ? 0 : 1>(acc, ad, bd, 1);",
+                       "hopper::Wgmma<kFN>::ss<0, 1>(acc, ad, bd, 1);"),
+    # K6's epilogue takes the scale of the row beside each row (row ^ 1)
+    "fwd_scale_next_row": ("gmm", "grouped_matmul.cu",
+                           "const float s0 = scaled ? s[row] : 1.f, s1 = scaled ? s[row + 8] : 1.f;",
+                           "const float s0 = scaled ? s[row ^ 1] : 1.f, "
+                           "s1 = scaled ? s[(row + 8) ^ 1] : 1.f;"),
 }
 
 
@@ -1645,28 +1664,44 @@ FWD_INSTANCES = {"bf16_dp128": "fwd_kernelI13__nv_bfloat16Li128EE",
                  "f32_dp128": "fwd_kernelIfLi128EE", "f32_dp64": "fwd_kernelIfLi64EE"}
 
 
-def fwd_build_facts():
-    """K1's instantiations from their build: wgmma (HGMMA) and TMA
-    (UTMALDG) instructions, each above zero, no mma.sync (HMMA), and their
-    registers and spill bytes."""
+# The grouped-matmul forward's instantiations, fwd_kernel<T, TRANS,
+# SCALED>: K5, its dx form and K6, bf16 (the path's) and f32.
+GMM_FWD_INSTANCES = {"k5": "fwd_kernelI13__nv_bfloat16Lb0ELb0E",
+                     "k5_dx": "fwd_kernelI13__nv_bfloat16Lb1ELb0E",
+                     "k6": "fwd_kernelI13__nv_bfloat16Lb0ELb1E",
+                     "k5_f32": "fwd_kernelIfLb0ELb0E", "k5_dx_f32": "fwd_kernelIfLb1ELb0E",
+                     "k6_f32": "fwd_kernelIfLb0ELb1E"}
+
+
+def fwd_build_facts(lib="flash_fwd", instances=FWD_INSTANCES):
+    """The instantiations of a TMA + wgmma forward (K1's by default; the
+    grouped matmul's with GMM_FWD_INSTANCES) from their build: wgmma
+    (HGMMA) and TMA (UTMALDG) instructions, each above zero, no mma.sync
+    (HMMA), and their registers and spill bytes, which must be 0."""
     out = {}
-    for key, piece in FWD_INSTANCES.items():
-        sass, usage = build_facts("flash_fwd", piece, ("HGMMA", "UTMALDG", "HMMA"))
+    for key, piece in instances.items():
+        sass, usage = build_facts(lib, piece, ("HGMMA", "UTMALDG", "HMMA"))
         check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0 and sass["HMMA"] == 0,
-              f"flash fwd {key}: not a TMA + wgmma kernel by its SASS: {sass}")
+              f"{lib} {key}: not a TMA + wgmma kernel by its SASS: {sass}")
+        check(usage.get("spill_stores", 0) == 0 and usage.get("spill_loads", 0) == 0,
+              f"{lib} {key}: spills registers: {usage}")
         out[key] = {"sass": sass, "ptxas": usage}
     return out
 
 
 def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
-    """K5, K6, K7a and K7b (and K5's dx use) at the moe_train shapes: b 16
-    x t 512 = 8192 top-1 choices over 8 experts in 256-row blocks (10240
-    rows), gate/up 768 -> 3072 and down 3072 -> 768, bf16; padding rows
-    carry zero cotangents and scales. Beside each: its bound (the larger
-    of 2·rows·k·n operations at 989 TFLOP/s, rows = the non-sentinel rows
-    the kernel computes, and its bytes at 3.35 TB/s, each input read once
-    and each output written once), its plain version and the library
-    yardstick (grouped_mm_yardstick)."""
+    """K5, K6, K7a and K7b, and K5's dx use at both of its shapes (f -> d
+    for gate and up, d -> f for the down product's t), at the moe_train
+    shapes: b 16 x t 512 = 8192 top-1 choices over 8 experts in 256-row
+    blocks (10240 rows), gate/up 768 -> 3072 and down 3072 -> 768, bf16;
+    padding rows carry zero cotangents and scales. Beside each: its bound
+    (the larger of 2·rows·k·n operations at 989 TFLOP/s, rows = the
+    non-sentinel rows the kernel computes, and its bytes at 3.35 TB/s, each
+    input read once and each output written once), its plain version and
+    the library yardstick (grouped_mm_yardstick); for the scaled kernels
+    (K6, K7b) that call runs on the input scaled before the timing, and the
+    two calls that compute the same function from the unscaled input are
+    timed beside it. Then the forward's and the dw's build facts."""
     rng = np.random.RandomState(8)
     gen = torch.Generator(dev).manual_seed(8)
     be, valid, pad_start = routed_block_map(rng, tokens, E, B, dev)
@@ -1691,7 +1726,7 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
                R * d * e2 + E * d * f * e2 + R * f * e2 + be.numel() * 4, (-1,)),
         "k6": (lambda i: gm.gmm_fwd_kernel(h, w_down, be, s, block_rows=B),
                lambda i: gm.gmm_fwd_reference(h, w_down, be, s, block_rows=B),
-               (h, w_down), (h, w_down[0]), 2 * rows * f * d,
+               (hs, w_down), (hs, w_down[0]), 2 * rows * f * d,
                R * f * e2 + E * f * d * e2 + R * e4 + R * d * e2 + be.numel() * 4, (-1,)),
         "k7a": (lambda i: gm.gmm_dw_kernel(x, dy_up, be, E, block_rows=B),
                 lambda i: gm.gmm_dw_reference(x, dy_up, be, E, block_rows=B),
@@ -1705,8 +1740,18 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
                   lambda i: gm.gmm_fwd_reference(dy_up, w_up, be, block_rows=B, trans_w=True),
                   (dy_up, w_up.transpose(1, 2)), (dy_up, w_up[0].t()), 2 * rows * f * d,
                   R * f * e2 + E * d * f * e2 + R * d * e2 + be.numel() * 4, (-1,)),
+        "k5_dx_down": (lambda i: gm.gmm_fwd_kernel(dy_down, w_down, be, block_rows=B,
+                                                   trans_w=True),
+                       lambda i: gm.gmm_fwd_reference(dy_down, w_down, be, block_rows=B,
+                                                      trans_w=True),
+                       (dy_down, w_down.transpose(1, 2)), (dy_down, w_down[0].t()),
+                       2 * rows * d * f,
+                       R * d * e2 + E * f * d * e2 + R * f * e2 + be.numel() * 4, (-1,)),
     }
     hs_scale = s.to(bf)[:, None]
+    # the scaled kernels' function in two calls: scale in bf16, then the product
+    two_call = {"k6": lambda i: torch._grouped_mm(h * hs_scale, w_down, offs=ends),
+                "k7b": lambda i: torch._grouped_mm((h * hs_scale).t(), dy_down, offs=ends)}
     out = {}
     for name, (kern, plain, lib_ab, mm_args, ops, nbytes, dims) in specs.items():
         got, want = kern(0), plain(0).float()
@@ -1714,17 +1759,11 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
         err = (got.float() - want).abs()
         check(bool((err <= gmm_limit(want, bf, dims)).all()),
               f"{name} at the moe_train shape: max abs err {float(err.max())}")
-        if name == "k6":  # the library call leaves the row scale out (same FLOPs)
-            want = gm.gmm_fwd_reference(h, w_down, be, block_rows=B).float()
         lib, label, lib_err = grouped_mm_yardstick(*lib_ab, ends, want, bf, dims, mm_args)
-        if name == "k6":
-            label += ", without the row scale"
         fns = [("kernel", kern), ("plain", plain), ("library", lib)]
-        if name == "k7b" and label.startswith("torch._grouped_mm"):
-            # the function K7b computes, in two calls: scale, then the product
-            label += ", on x scaled before the timing"
-            fns.append(("library_two_call", lambda i: torch._grouped_mm(
-                (h * hs_scale).t(), dy_down, offs=ends)))
+        if name in two_call and label.startswith("torch._grouped_mm"):
+            label += ", on the input scaled before the timing"
+            fns.append(("library_two_call", two_call[name]))
         del got, want
         ms, source, runs = timed_in_turns(
             fns, {"kernel": 20, "plain": 3, "library": 20, "library_two_call": 20})
@@ -1748,6 +1787,7 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
             # PyTorch ops (_expert_block_lists) the wrapper runs before it
             out[name]["dw_kernel_ms"], out[name]["block_lists_ms"] = device_ms_split(
                 kern, 20, "dw_kernel")
+    out["fwd_build"] = fwd_build_facts("grouped_matmul", GMM_FWD_INSTANCES)
     emit({"phase": "gmm_timing", "shape": {"tokens": tokens, "experts": E, "block_rows": B,
                                            "rows": R, "computed_rows": rows, "d": d, "f": f,
                                            "dtype": "bfloat16"},
@@ -2287,6 +2327,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
         })
+        if key == "k5":
+            # the dx form at the path's two shapes: gate and up's (f -> d,
+            # 24 launches a step) and the down product's t (d -> f, 12)
+            kernels[-1]["dx"] = {
+                shape: {x: gt[dx][x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")}
+                for shape, dx in (("f_to_d", "k5_dx"), ("d_to_f", "k5_dx_down"))}
+        if "library_two_call_ms" in t:
+            kernels[-1]["library_two_call_ms"] = t["library_two_call_ms"]
     kernels.append({
         "name": "fused_linear_stats", "route": "cuda",
         "source": "tf_operator_tpu_torch/ops/csrc/fused_linear_stats.cu",

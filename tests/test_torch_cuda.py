@@ -188,13 +188,16 @@ def _mixed_case(dev, dtype, scaled, seed=31, k=264, n=200, block_map="mixed"):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("scaled", [False, True], ids=["plain", "row_scale"])
-@pytest.mark.parametrize("k,n", [(264, 200), (128, 384)])
+@pytest.mark.parametrize("k,n", [(264, 200), (200, 264), (128, 384)])
 @pytest.mark.parametrize("block_map", sorted(GMM_MAPS))
 def test_gmm_kernels_match_plain(dev, dtype, scaled, k, n, block_map):
     """K5 or K6, K5 on w^T and K7a or K7b against their plain versions on
     ragged and sentinel block maps, one of them with every block in one
-    expert (the dw ring wraps many times); sentinel rows and the dw of
-    experts without blocks exactly zero; each kernel launched as counted."""
+    expert (the dw ring wraps many times); sentinel rows of y and dx and
+    the dw of experts without blocks exactly zero; each kernel launched as
+    counted. (264, 200) and (200, 264) end inside a 64-deep box and a
+    256-wide tile in both pairs of dimensions, where the mixed map puts
+    another expert's weights right after each edge."""
     c = _mixed_case(dev, dtype, scaled, k=k, n=n, block_map=block_map)
     before = (gm.gmm_fwd_launches, gm.gmm_fwd_scaled_launches, gm.gmm_dw_launches,
               gm.gmm_dw_scaled_launches)
@@ -206,9 +209,11 @@ def test_gmm_kernels_match_plain(dev, dtype, scaled, k, n, block_map):
     assert tuple(a - b for a, b in zip(after, before)) == want
     assert gmm_within(errs), errs
     y = gm.gmm_fwd_kernel(c["x"], c["w"], c["be"], c["s"], block_rows=256)
+    dx = gm.gmm_fwd_kernel(c["dy"], c["w"], c["be"], block_rows=256, trans_w=True)
     dw = gm.gmm_dw_kernel(c["x"], c["dy"], c["be"], 6, c["s"], block_rows=256)
     rows = (c["be"] < 0).repeat_interleave(256)
     assert bool((y[rows] == 0).all())
+    assert bool((dx[rows] == 0).all())
     assert all(bool((dw[e] == 0).all()) for e in c["empty"])
 
 
@@ -217,8 +222,9 @@ def test_gmm_check_fails_on_planted_fault(dev, name):
     """A copy of the grouped-matmul source with one planted fault (a
     sentinel block computed, a dw walk short of its last block, the
     neighbouring expert's weights, K7b's scale from the next row, the dw
-    products stepping by columns) fails the check the real kernels pass,
-    in both types."""
+    products stepping by columns, the forward's x descriptors stepping 16
+    bytes, the dx form's weights read MN-major, K6's scale from the row
+    beside) fails the check the real kernels pass, in both types."""
     lib = build_plants([name], GMM_PLANTS)[name]
     for dtype in (torch.bfloat16, torch.float32):
         cases = [_mixed_case(dev, dtype, scaled) for scaled in (False, True)]

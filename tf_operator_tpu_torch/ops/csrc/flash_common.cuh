@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention backward kernels (flash_bwd.cu),
-// which the grouped-matmul forward (K5, K6) and K8 borrow; the forward
-// kernel (flash_fwd.cu, TMA + wgmma) takes only the constants, the bf16
-// packing and the f32 split from here.
+// which K8 borrows; the TMA + wgmma kernels (flash_fwd.cu,
+// grouped_matmul.cu) take only the constants, the bf16 packing, the f32
+// split and the launch from here.
 //
 // One kernel per function, templated on the element type T and the head
 // dimension D (16..128, so the register arrays have fixed sizes). Every

@@ -487,8 +487,10 @@ template <typename T, int DP>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b, int t, int h,
         int h_kv, int d, int causal, float scale, cudaStream_t stream) {
   using L = FwdLayout<T, DP>;
+  int sms = 0, err = hopper::bind_device(&sms);
+  if (err) return err;
   CUtensorMap qmap, kmap, vmap;
-  int err = encode_heads<T>(&qmap, q, b, t, h, d, kRows);
+  err = encode_heads<T>(&qmap, q, b, t, h, d, kRows);
   if (!err) err = encode_heads<T>(&kmap, k, b, t, h_kv, d, L::KT);
   if (!err) err = encode_heads<T>(&vmap, v, b, t, h_kv, d, L::KT);
   if (err) return err;
@@ -497,10 +499,6 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b,
   const int fold = (h / h_kv) % 2 == 0;
   const int span = fold ? kRows : 2 * kRows;
   const long long items = (long long)(fold ? h / 2 : h) * b * ((t + span - 1) / span);
-  int dev = 0, sms = 0;
-  if ((err = (int)cudaGetDevice(&dev)) ||
-      (err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
   if (items > INT_MAX) return (int)cudaErrorInvalidValue;
   const int grid = items < sms ? (int)items : sms;  // persistent: one block an SM
   return launch(fwd_kernel<T, DP>, dim3(grid), kThreads, (size_t)L::bytes, stream, qmap, kmap,

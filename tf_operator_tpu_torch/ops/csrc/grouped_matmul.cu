@@ -16,24 +16,48 @@
 // 768 <-> 3072, 8 experts) each launch does 2 * 10240 * 768 * 3072 =
 // 48.3 GFLOP, 0.049 ms at the H100's 989 TFLOP/s bf16 dense peak, against
 // ~116 MB of operands (0.035 ms at 3.35 TB/s; dw's f32 output alone is 75
-// MB). So every product runs on the tensor cores.
+// MB). So every product runs on wgmma, fed by TMA, in both kernels:
 //
-// Forward (K5, K6): bf16 mma.sync.m16n8k16 with f32 accumulation, operands
-// through ldmatrix from shared memory, 128 x 128 output tiles, one block
-// per (128-row tile inside a routing block, 128-column tile). The block
-// reads its block's expert from `be` itself; a sentinel block writes its
-// zeros and does no product. The TPU steered the weight BlockSpec by a
-// scalar-prefetched map; here the block offsets its own weight pointer. dx
-// reads w[e] in place through the B tile's other layout (its rows are the
-// output's columns, loaded without .trans), so no w^T is materialised,
-// where the JAX rule swaps the axes of w first (grouped_matmul.py:345).
-// Each of the 8 warps owns a 64 x 32 piece of the tile in registers; the
-// next 32-deep slice of both operands streams in with cp.async (bf16)
-// while the current one is multiplied (two stages). T = f32 runs this same
-// code on operands split into bf16 hi + lo, three products each (see
-// flash_common.cuh), loaded through registers.
+// Forward (K5, K6, K5's dx form), fwd_kernel below.
+//   - An item is one 128-row tile inside a routing block x one 256-column
+//     tile of y. Items are numbered row tile by row tile (fwd_item), and
+//     rows arrive grouped by expert, so the items a round runs side by side
+//     share one or a few experts' weights in the 50 MB L2 (all experts'
+//     weights are 37.7 MB at moe-small's shape).
+//   - One persistent block per SM (288 threads) takes items blockIdx.x,
+//     + gridDim.x, ...; every item but a sentinel is K deep, so the deal
+//     is even. The TPU steered the weight BlockSpec by a scalar-prefetched
+//     map; here both roles read the item's expert from `be` themselves,
+//     and a sentinel item issues no loads and writes zeros.
+//   - Warp 8 is the producer: one thread fills a ring of kFwdStages stages
+//     of 64 reduction indices with cp.async.bulk.tensor, behind full and
+//     empty mbarriers: x's [128 rows][64] (a 2-D map over [R, K]) and
+//     w[e]'s [64][256] ([256][64] for dx), as 64 x 64 boxes with the
+//     128-byte swizzle, 48 KB a stage. w is a 3-D map over [E, K, N]
+//     ([E, N, K] for dx), so a box past K or N reads zeros, never the next
+//     expert's rows. It runs ahead into the next item while the consumers
+//     finish this one, so one item's epilogue overlaps the next one's loads.
+//   - Warpgroups 0 and 1 are the consumers: each owns 64 rows x 256 columns
+//     of the tile in 128 f32 registers a thread and issues four
+//     wgmma.mma_async.m64n256k16 a stage. A = x is K-major (a depth step of
+//     16 is 32 bytes along the swizzled row); B = w[e] is MN-major (a step is
+//     16 box rows on), or for dx K-major: w[e] [N, K] read in place as
+//     w[e]^T, where the JAX rule swaps the axes first (grouped_matmul.py:345).
+//     A slot goes back once wgmma.wait_group 1 says its products are done;
+//     no __syncthreads in the loop.
+//   - Epilogue: K6 multiplies each f32 sum by s[row] before rounding. bf16
+//     tiles are rounded into a swizzled shared buffer, kEpiCols columns at a
+//     time, and written by TMA stores (cp.async.bulk.tensor shared ->
+//     global, clipped at N), which drain while the next item's products
+//     run: y is 62.9 MB of the ~116 MB a d -> f launch moves at
+//     moe-small's shape.
+//   - T = f32 runs the same walk, ring and products: TMA lands f32 boxes
+//     (one stage), the consumers split them into bf16 hi and lo planes in
+//     the swizzled layout and issue hi.hi + hi.lo + lo.hi into the same
+//     sums, so the f32 check vouches for the bf16 kernel's walk, boxes and
+//     descriptors; its tiles are stored from registers.
 //
-// dw (K7a, K7b), dw_kernel below: Hopper's TMA and wgmma.
+// dw (K7a, K7b), dw_kernel below: the same machinery.
 //   - The TPU carried the accumulator across its sequential grid axis; on
 //     Hopper the blocks run in no order, so each (expert, 128-row tile of
 //     dw, 256-column tile) item walks the expert's block list in a loop
@@ -67,18 +91,18 @@
 //     reads it. The other warpgroup's products run meanwhile. (Scaling the
 //     next stage's box behind the current products measured slower:
 //     tf_operator_tpu_torch/tools/gmm_dw_variants.py, PERF.md.)
-//   - T = f32 runs the same walk, ring and products: TMA lands f32 boxes
-//     (one stage), the consumers split them into bf16 hi and lo planes in
-//     the swizzled layout (scaling x first for K7b) and issue the three
-//     products hi.hi + hi.lo + lo.hi into the same sums, so the f32 check
-//     vouches for the bf16 kernel's walk, tiles and descriptors.
-//   - The tensor maps are encoded in the C entries from the raw pointers
-//     and shapes (cuTensorMapEncodeTiled through the runtime's driver
-//     entry point) and passed as __grid_constant__ parameters.
-// Not done yet: the forward's wgmma and TMA (K5, K6 and the dx use still
-// run the mma.sync code above, whose load_tile SCALE and mainloop A_KM
-// forms no kernel instantiates now); items smaller than a whole walk, so
-// that the last round does not leave blocks idle.
+//   - T = f32 as in the forward (x scaled first for K7b).
+// The tensor maps of both are encoded in the C entries from the raw
+// pointers and shapes (cuTensorMapEncodeTiled through the runtime's driver
+// entry point) and passed as __grid_constant__ parameters.
+// Measured against variants of the forward (tools/gmm_fwd_variants.py,
+// PERF.md): 3 stages with the tile stored in one round, 128 x 128 tiles
+// with 4-6 stages, one block an item, and items numbered column tile by
+// column tile were all slower at moe-small's four forward shapes; bf16
+// tiles stored from registers took 1.55x as long where y is the larger
+// side (d -> f).
+// Not done yet: dw items smaller than a whole walk, so that the last round
+// does not leave blocks idle.
 
 #include <climits>
 
@@ -91,281 +115,238 @@ namespace {
 using bf16 = __nv_bfloat16;
 using flash::Planes;
 
-constexpr int kBM = 128;  // output tile rows
-constexpr int kBN = 128;  // output tile columns
-constexpr int kBK = 32;   // depth of one pipeline stage
-constexpr int kThreads = 256;  // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
-constexpr int kPad = 8;   // bf16 elements added to each shared row (no bank conflicts)
+using hopper::bar_sync;
+using hopper::fence_async_smem;
+using hopper::mbar_arrive;
+using hopper::mbar_expect;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::tma_box;
+using hopper::bulk_copy;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait;
 
-// Rows [r0, r0 + ROWS) x cols [c0, c0 + COLS) of the row-major matrix src
-// (leading dimension ld, valid rows < rmax, valid cols < cmax, cmax % 8 == 0)
-// into a shared tile [planes][ROWS][COLS + kPad]; chunks out of range are
-// zeros. SCALE multiplies source row `row` by scale[row] in f32 first.
-// bf16 unscaled: cp.async (the caller commits and waits); otherwise read,
-// scaled, rounded or split, and stored before returning.
-template <typename T, int ROWS, int COLS, bool SCALE>
-__device__ __forceinline__ void load_tile(bf16* dst, const T* __restrict__ src, int ld, int r0,
-                                          int c0, int rmax, int cmax,
-                                          const float* __restrict__ scale) {
-  constexpr int LDS = COLS + kPad, CH = COLS / 8, PLANE = ROWS * LDS;
-  for (int i = threadIdx.x; i < ROWS * CH; i += kThreads) {
-    const int r = i / CH;
-    const int c = (i - r * CH) * 8;
-    const int row = r0 + r, col = c0 + c;
-    const bool valid = row < rmax && col < cmax;
-    const T* g = valid ? src + (size_t)row * ld + col : src;
-    bf16* s = dst + r * LDS + c;
-    if constexpr (Planes<T>::value == 1 && !SCALE) {
-      flash::cp_async16(s, g, valid);
-    } else {
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      if (valid) {
-        if constexpr (Planes<T>::value == 1) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(g);
-          const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w4[j]));
-            v[2 * j] = f.x;
-            v[2 * j + 1] = f.y;
-          }
-        } else {
-          const float4 a = reinterpret_cast<const float4*>(g)[0];
-          const float4 b = reinterpret_cast<const float4*>(g)[1];
-          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-          v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-        }
-        if constexpr (SCALE) {
-          const float sc = scale[row];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] *= sc;
-        }
-      }
-      if constexpr (Planes<T>::value == 1) {
-        uint4 h;
-        h.x = flash::pack_bf16(v[0], v[1]);
-        h.y = flash::pack_bf16(v[2], v[3]);
-        h.z = flash::pack_bf16(v[4], v[5]);
-        h.w = flash::pack_bf16(v[6], v[7]);
-        *reinterpret_cast<uint4*>(s) = h;
-      } else {
-        uint4 h, l;
-        flash::split_pack(v[0], v[1], h.x, l.x);
-        flash::split_pack(v[2], v[3], h.y, l.y);
-        flash::split_pack(v[4], v[5], h.z, l.z);
-        flash::split_pack(v[6], v[7], h.w, l.w);
-        *reinterpret_cast<uint4*>(s) = h;
-        *reinterpret_cast<uint4*>(s + PLANE) = l;
-      }
-    }
+using hopper::kBox;       // columns of a TMA box: 64 bf16 fill one 128-byte swizzle row
+using hopper::kRowBytes;  // a bf16 box row
+constexpr int kThreads = 288;  // warps 0-7: two consumer warpgroups; warp 8: the producer
+
+// Two neighbouring outputs from their f32 sums: rounded to bf16, or as they
+// are.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float x0, float x1) {
+  if constexpr (Planes<T>::value == 1) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
   }
 }
 
-// Fragment loaders (layouts in flash_common.cuh); frag[p] from plane p,
-// `plane` elements apart.
+// ---------------------------------------------------------------------------
+// Forward (K5, K6, K5's dx form): a TMA ring feeding wgmma
+// ---------------------------------------------------------------------------
 
-// A 16 x 16 (m x k) from a tile stored [m][k].
-template <int P>
-__device__ __forceinline__ void frag_a_mk(uint32_t (*a)[4], const bf16* tile, int plane, int ld,
-                                          int m0, int k0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    flash::ldsm_x4(a[p], tile + p * plane + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
+constexpr int kBM = 128;        // forward tile rows: 64 a consumer warpgroup
+constexpr int kFN = 256;        // forward tile columns
+constexpr int kFwdStages = 4;   // ring stages (bf16; f32 lands one stage)
+constexpr int kEpiCols = 128;   // columns of y a warpgroup rounds into shared memory at a time
+constexpr int kFBox = kBox * kRowBytes;        // a bf16 box of 64 x 64, 8192 bytes
+constexpr int kXFBoxes = kBM / kBox;           // a stage holds x's boxes, then w[e]'s
+constexpr int kFwdBoxes = (kBM + kFN) / kBox;
+constexpr int kFwdAcc = kFN / 2;               // f32 sums a consumer thread holds
 
-// A 16 x 16 (m x k) from a tile stored [k][m] (x^T for dw): ldmatrix.trans;
-// matrix j = lane / 8 is rows k0 + 8 (j / 2), cols m0 + 8 (j % 2).
-template <int P>
-__device__ __forceinline__ void frag_a_km(uint32_t (*a)[4], const bf16* tile, int plane, int ld,
-                                          int m0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const int j = lane >> 3;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    flash::ldsm_x4_trans(a[p], tile + p * plane + (k0 + (lane & 7) + ((j >> 1) << 3)) * ld + m0 +
-                                   ((j & 1) << 3));
-}
-
-// B of two 8-column blocks n0, n0 + 8 at depth [k0, k0 + 16) from a tile
-// stored [k][n] (w for y = x.w; dy for dw): ldmatrix.trans.
-template <int P>
-__device__ __forceinline__ void frag_b_kn(uint32_t (*b)[4], const bf16* tile, int plane, int ld,
-                                          int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    flash::ldsm_x4_trans(b[p], tile + p * plane + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                                   n0 + (lane >> 4) * 8);
-}
-
-// The same from a tile stored [n][k] (w[e] read as w[e]^T for dx).
-template <int P>
-__device__ __forceinline__ void frag_b_nk(uint32_t (*b)[4], const bf16* tile, int plane, int ld,
-                                          int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    flash::ldsm_x4(b[p], tile + p * plane + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-                             ((lane >> 3) & 1) * 8);
-}
-
-// Shared tile geometry: A is [kBM][kBK] (A_KM: [kBK][kBM]), B is [kBK][kBN]
-// (B_NK: [kBN][kBK]), each row padded by kPad.
-template <bool A_KM>
-struct TileA {
-  static constexpr int ld = (A_KM ? kBM : kBK) + kPad;
-  static constexpr int plane = (A_KM ? kBK : kBM) * ld;
-};
-template <bool B_NK>
-struct TileB {
-  static constexpr int ld = (B_NK ? kBK : kBN) + kPad;
-  static constexpr int plane = (B_NK ? kBN : kBK) * ld;
+// Shared memory of fwd_kernel<T> (byte offsets from a 1024-byte boundary):
+// the ring of `stages` stages, each kFwdBoxes TMA boxes of [64][kBox] T; for
+// f32 the stage split into bf16 hi and lo planes (each laid out as a bf16
+// stage); for bf16 each consumer warpgroup's epilogue buffer (kEpiCols /
+// kBox boxes of 64 rows of y); the full and empty mbarriers.
+template <typename T>
+struct FwdLayout {
+  static constexpr bool split = Planes<T>::value == 2;
+  static constexpr bool tma_store = !split;  // f32 tiles go out from registers
+  static constexpr int stages = split ? 1 : kFwdStages;
+  static constexpr int box = kBox * kBox * (int)sizeof(T);
+  static constexpr int stage = kFwdBoxes * box;
+  static constexpr int planes = stages * stage;
+  static constexpr int plane = kFwdBoxes * kFBox;
+  static constexpr int epi = planes + (split ? 2 * plane : 0);
+  static constexpr int epi_wg = tma_store ? kEpiCols / kBox * kFBox : 0;
+  static constexpr int bars = epi + 2 * epi_wg;
+  static constexpr int bytes = bars + 2 * stages * 8 + 1024;
 };
 
-template <typename T, bool A_KM, bool B_NK>
-__host__ __device__ constexpr int stage_elems() {
-  return Planes<T>::value * (TileA<A_KM>::plane + TileB<B_NK>::plane);
-}
-template <typename T, bool A_KM, bool B_NK>
-constexpr size_t smem_bytes() {
-  return 2 * (size_t)stage_elems<T, A_KM, B_NK>() * sizeof(bf16);
+// Item i of the forward: row tile i / tiles_n and column tile i % tiles_n
+// (the column tiles of one row tile next to each other, then the next row
+// tile), and the expert of its routing block (-1: a sentinel).
+struct FwdItem {
+  int m0, n0, e;
+};
+__device__ __forceinline__ FwdItem fwd_item(int i, int tiles_m, int tiles_n, const int* be,
+                                            int block_rows) {
+  FwdItem w;
+  w.m0 = i / tiles_n * kBM;
+  w.n0 = i % tiles_n * kFN;
+  w.e = be[w.m0 / block_rows];
+  return w;
 }
 
-// acc[mi][ni] += A.B over one kBK-deep stage: the warp's 64 x 32 piece at
-// (wm0, wn0) of the tile, 4 x 4 mma tiles of 16 x 8.
-template <int P, bool A_KM, bool B_NK>
-__device__ __forceinline__ void mma_stage(float (*acc)[4][4], const bf16* as, const bf16* bs,
-                                          int wm0, int wn0) {
-  using TA = TileA<A_KM>;
-  using TB = TileB<B_NK>;
+// acc += x . w[e] (or x . w[e]^T) over one stage of 64 reduction indices: a
+// is the warpgroup's x box, K-major (a depth step of 16 is 32 bytes along
+// the swizzled 128-byte row); b is w[e]'s first box. K5, K6: [64 k][64 n]
+// boxes, MN-major, a step 16 box rows on and the next 64 columns one box
+// on (LBO). dx: [64 n][64 k] boxes, K-major like a, whose 256 rows run on
+// across the boxes 1024 bytes every 8 (SBO).
+template <bool TRANS>
+__device__ __forceinline__ void fwd_products(float* acc, uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    uint32_t a[4][P][4];
-    uint32_t b[2][P][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      if constexpr (A_KM) {
-        frag_a_km<P>(a[mi], as, TA::plane, TA::ld, wm0 + 16 * mi, 16 * kk);
-      } else {
-        frag_a_mk<P>(a[mi], as, TA::plane, TA::ld, wm0 + 16 * mi, 16 * kk);
-      }
-    }
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      if constexpr (B_NK) {
-        frag_b_nk<P>(b[nj], bs, TB::plane, TB::ld, wn0 + 16 * nj, 16 * kk);
-      } else {
-        frag_b_kn<P>(b[nj], bs, TB::plane, TB::ld, wn0 + 16 * nj, 16 * kk);
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) flash::mma<P>(acc[mi][ni], a[mi], b[ni >> 1], ni & 1);
+  for (int k = 0; k < kBox / 16; ++k) {
+    const uint64_t ad = hopper::kmajor_desc(a + k * 32);
+    const uint64_t bd = TRANS ? hopper::kmajor_desc(b + k * 32)
+                              : hopper::sw128_desc(b + k * 16 * kRowBytes, kFBox, 1024);
+    hopper::Wgmma<kFN>::ss<0, TRANS ? 0 : 1>(acc, ad, bd, 1);
   }
 }
 
-// The pipelined loop over `steps` stages: load(step, a_tile, b_tile) fills
-// one stage; two stages alternate, the next loading while the current is
-// multiplied.
-template <typename T, bool A_KM, bool B_NK, class Load>
-__device__ __forceinline__ void mainloop(float (*acc)[4][4], bf16* smem, int steps, Load load,
-                                         int wm0, int wn0) {
-  constexpr int P = Planes<T>::value;
-  constexpr int SE = stage_elems<T, A_KM, B_NK>();
-  constexpr int AE = P * TileA<A_KM>::plane;
-  if (steps <= 0) return;
-  load(0, smem, smem + AE);
-  flash::cp_async_commit();
-  for (int i = 0; i < steps; ++i) {
-    bf16* cur = smem + (i & 1) * SE;
-    if (i + 1 < steps) {
-      bf16* nxt = smem + ((i + 1) & 1) * SE;
-      load(i + 1, nxt, nxt + AE);
-      flash::cp_async_commit();
-      flash::cp_async_wait<1>();
-    } else {
-      flash::cp_async_wait<0>();
-    }
-    __syncthreads();
-    mma_stage<P, A_KM, B_NK>(acc, cur, cur + AE, wm0, wn0);
-    __syncthreads();  // the stage is free for the load two steps on
-  }
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-__device__ __forceinline__ void store_pair(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-
-// Forward (K5, K6): y [R, N] = x [R, K] @ w[e] ([K, N]; TRANS: w[e] is
-// [N, K] and is read as w[e]^T), times s[r] when SCALED.
+// y [R, N] = x [R, K] @ w[e] (w [E, K, N]; TRANS: w [E, N, K] read as
+// w[e]^T), times s[r] when SCALED, e the expert of row r's routing block.
+// x, w and y arrive as tensor maps (y's for the TMA stores); y's pointer
+// for f32's stores from registers.
 template <typename T, bool TRANS, bool SCALED>
-__global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restrict__ be,
-           const float* __restrict__ s, T* __restrict__ y, int R, int K, int N, int block_rows) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int e = be[m0 / block_rows];
-  if (e < 0) {
-    // sentinel block: its rows still exist (static shapes), so write zeros,
-    // and spend no product on them
-    constexpr int CH = kBN / 8;
-    for (int i = threadIdx.x; i < kBM * CH; i += kThreads) {
-      const int r = i / CH;
-      const int c = n0 + (i - r * CH) * 8;
-      if (c >= N) continue;
-      T* out = y + (size_t)(m0 + r) * N + c;
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) store_pair(out + j, 0.f, 0.f);
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+           const __grid_constant__ CUtensorMap ymap, const int* __restrict__ be,
+           const float* __restrict__ s, T* __restrict__ y, int K, int N, int tiles_m,
+           int tiles_n, int block_rows) {
+  using L = FwdLayout<T>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (flash::smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t base = flash::smem_addr(smem);
+  const uint32_t full = base + L::bars, empty = full + 8 * L::stages;
+  const int items = tiles_m * tiles_n, steps = (K + kBox - 1) / kBox;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::stages; ++i) {
+      mbar_init(full + 8 * i, 1);   // the producer's arrive, with the stage's bytes
+      mbar_init(empty + 8 * i, 2);  // one arrive from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer: one thread issues every copy
+    if ((threadIdx.x & 31) == 0) {
+      int it = 0;  // stages issued, over all items
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const FwdItem w = fwd_item(i, tiles_m, tiles_n, be, block_rows);
+        if (w.e < 0) continue;  // a sentinel: no loads
+        for (int k0 = 0; k0 < K; k0 += kBox, ++it) {
+          const int st = it % L::stages;
+          mbar_wait(empty + 8 * st, ((it / L::stages) & 1) ^ 1);
+          const uint32_t bar = full + 8 * st, dst = base + st * L::stage;
+          mbar_expect(bar, L::stage);
+          for (int b = 0; b < kXFBoxes; ++b)
+            tma_box(dst + b * L::box, xmap, bar, k0, w.m0 + b * kBox);
+          for (int b = 0; b < kFN / kBox; ++b) {
+            const int c = w.n0 + b * kBox;  // y's columns: w[e]'s (dx: its rows)
+            const int c0 = TRANS ? k0 : c, c1 = TRANS ? c : k0;
+            hopper::tma_box_3d(dst + (kXFBoxes + b) * L::box, wmap, bar, c0, c1, w.e);
+          }
+        }
+      }
     }
     return;
   }
-  const T* we = w + (size_t)e * K * N;
-  const int warp = threadIdx.x >> 5;
-  const int wm0 = (warp >> 2) * 64, wn0 = (warp & 3) * 32;
 
-  float acc[4][4][4];
+  // the consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile;
+  // acc[4j .. 4j + 3] are this thread's rows r, r + 8 of them at columns
+  // 8j + q and the next
+  const int wg = warp >> 2, t = threadIdx.x & 127, lane = t & 31;
+  const int r = (t >> 5) * 16 + (lane >> 2), q = 2 * (lane & 3);
+  float acc[kFwdAcc];
+  int it = 0;  // stages consumed, over all items
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const FwdItem w = fwd_item(i, tiles_m, tiles_n, be, block_rows);
+    const int n = w.e < 0 ? 0 : steps;  // a sentinel's sums stay zero
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  auto load = [&](int step, bf16* as, bf16* bs) {
-    const int k0 = step * kBK;
-    load_tile<T, kBM, kBK, false>(as, x, K, m0, k0, R, K, nullptr);
-    if constexpr (TRANS) {
-      load_tile<T, kBN, kBK, false>(bs, we, K, n0, k0, N, K, nullptr);
-    } else {
-      load_tile<T, kBK, kBN, false>(bs, we, N, k0, n0, K, N, nullptr);
+    for (int x = 0; x < kFwdAcc; ++x) acc[x] = 0.f;
+    for (int step = 0; step < n; ++step, ++it) {
+      const int st = it % L::stages;
+      mbar_wait(full + 8 * st, (it / L::stages) & 1);
+      if constexpr (L::split) {
+        // one plane pair serves the stage: both warpgroups' products of the
+        // last stage must be done before it is overwritten
+        wgmma_wait<0>();
+        bar_sync(1, 256);
+        hopper::split_boxes(smem + st * L::stage, smem + L::planes, smem + L::planes + L::plane,
+                            kFwdBoxes, kBox, threadIdx.x, 256, [](int, int) { return 1.f; });
+        fence_async_smem();
+        bar_sync(1, 256);
+        if (t == 0) mbar_arrive(empty + 8 * st);
+        const uint32_t hi = base + L::planes, lo = hi + L::plane;
+        const uint32_t xo = wg * kFBox, wo = kXFBoxes * kFBox;
+        wgmma_fence();
+        fwd_products<TRANS>(acc, hi + xo, hi + wo);
+        fwd_products<TRANS>(acc, hi + xo, lo + wo);
+        fwd_products<TRANS>(acc, lo + xo, hi + wo);
+        wgmma_commit();
+      } else {
+        const uint32_t a = base + st * L::stage;
+        wgmma_fence();
+        fwd_products<TRANS>(acc, a + wg * kFBox, a + kXFBoxes * kFBox);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: its slot goes back
+        if (step > 0 && t == 0) mbar_arrive(empty + 8 * ((it - 1) % L::stages));
+      }
     }
-  };
-  mainloop<T, false, TRANS>(acc, smem, (K + kBK - 1) / kBK, load, wm0, wn0);
+    wgmma_wait<0>();
+    hopper::fence_regs<kFwdAcc>(acc);
+    if (!L::split && n > 0 && t == 0) mbar_arrive(empty + 8 * ((it - 1) % L::stages));
 
-  const int lane = threadIdx.x & 31;
+    const int row = w.m0 + wg * 64 + r;
+    const bool scaled = SCALED && w.e >= 0;  // a sentinel's zeros stay zeros
+    const float s0 = scaled ? s[row] : 1.f, s1 = scaled ? s[row + 8] : 1.f;
+    if constexpr (L::tma_store) {
+      // rounded into the warpgroup's buffer, laid out as TMA lays bf16
+      // boxes (16-byte chunk c of row r at c ^ (r % 8)), then stored a box
+      // at a time by one thread; the buffer is rewritten only once the
+      // last stores have read it
+      unsigned char* buf = smem + L::epi + wg * L::epi_wg;
+      const uint32_t bufa = base + L::epi + wg * L::epi_wg;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+      for (int c0 = 0; c0 < kFN; c0 += kEpiCols) {
+        if (t == 0) hopper::bulk_wait_read<0>();
+        bar_sync(2 + wg, 128);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm0 + 16 * mi + (lane >> 2) + 8 * half;
-      float sc = 1.f;
-      if constexpr (SCALED) sc = s[row];
+        for (int j = c0 / 8; j < (c0 + kEpiCols) / 8; ++j) {
+          const int off = (j - c0 / 8) / 8 * kFBox + (((j & 7) ^ (r & 7)) << 4) + 2 * q;
+          *reinterpret_cast<uint32_t*>(buf + off + r * kRowBytes) =
+              flash::pack_bf16(acc[4 * j] * s0, acc[4 * j + 1] * s0);
+          *reinterpret_cast<uint32_t*>(buf + off + (r + 8) * kRowBytes) =
+              flash::pack_bf16(acc[4 * j + 2] * s1, acc[4 * j + 3] * s1);
+        }
+        fence_async_smem();  // the generic stores, before the TMA store reads them
+        bar_sync(2 + wg, 128);
+        if (t == 0) {
+          for (int b = 0; b < kEpiCols / kBox; ++b) {
+            const int col = w.n0 + c0 + b * kBox;
+            if (col < N) hopper::tma_store(ymap, bufa + b * kFBox, col, w.m0 + wg * 64);
+          }
+          hopper::bulk_commit();
+        }
+      }
+    } else {
+      T* out = y + (size_t)row * N;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn0 + 8 * ni + 2 * (lane & 3);
-        if (row < R && col < N)
-          store_pair(y + (size_t)row * N + col, acc[mi][ni][2 * half] * sc,
-                     acc[mi][ni][2 * half + 1] * sc);
+      for (int j = 0; j < kFN / 8; ++j) {
+        const int col = w.n0 + 8 * j + q;
+        if (col < N) {
+          store_pair(out + col, acc[4 * j] * s0, acc[4 * j + 1] * s0);
+          store_pair(out + 8 * (size_t)N + col, acc[4 * j + 2] * s1, acc[4 * j + 3] * s1);
+        }
       }
     }
   }
+  if (L::tma_store && t == 0) hopper::bulk_wait<0>();  // the buffers outlive their stores
 }
 
 // ---------------------------------------------------------------------------
@@ -375,12 +356,9 @@ fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, const int* __restri
 constexpr int kDepth = 64;   // rows of x and dy a stage (block_rows is a multiple of 128)
 constexpr int kTM = 128;     // dw tile rows (x's columns): 64 a consumer warpgroup
 constexpr int kTN = 256;     // dw tile columns (dy's columns)
-constexpr int kBox = 64;     // columns of a TMA box: 64 bf16 fill one 128-byte swizzle row
 constexpr int kXBoxes = kTM / kBox;             // a stage holds x's boxes, then dy's
 constexpr int kBoxes = (kTM + kTN) / kBox;
-constexpr int kRowBytes = kBox * 2;             // a bf16 box row
 constexpr int kPlaneBox = kDepth * kRowBytes;   // a bf16 box, 8192 bytes
-constexpr int kDwThreads = 288;  // warps 0-7: two consumer warpgroups; warp 8: the producer
 constexpr int kAcc = kTN / 2;    // f32 sums a consumer thread holds (64 x 256 / 128)
 constexpr int kMaxExperts = 1024;  // bounds of the item plan's shared arrays
 constexpr int kMaxBlocks = 1024;
@@ -402,18 +380,6 @@ struct DwLayout {
   static constexpr int plan = bars + 2 * stages * 8;  // plan_items' arrays
   static constexpr int bytes = plan + 4 * (2 * kMaxExperts + 2 * kMaxBlocks + kMaxRounds) + 1024;
 };
-
-using hopper::bar_sync;
-using hopper::fence_async_smem;
-using hopper::mbar_arrive;
-using hopper::mbar_expect;
-using hopper::mbar_init;
-using hopper::mbar_wait;
-using hopper::tma_box;
-using hopper::bulk_copy;
-using hopper::wgmma_commit;
-using hopper::wgmma_fence;
-using hopper::wgmma_wait;
 
 // wgmma descriptor of a 64-row (reduction) x 64k-wide tile of bf16 boxes
 // at shared address addr, MN-major with the 128-byte swizzle: each row of
@@ -556,7 +522,7 @@ __device__ __forceinline__ void split_stage(const unsigned char* stage, unsigned
 // it; the producer warp runs ahead through them, so one item's epilogue
 // overlaps the next item's loads.
 template <typename T, bool SCALED>
-__global__ void __launch_bounds__(kDwThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dymap,
           const float* __restrict__ s, const int* __restrict__ nblocks,
           const int* __restrict__ blist, float* __restrict__ dw, int K, int N, int E, int nb,
@@ -679,25 +645,51 @@ bool shapes_ok(int R, int K, int N, int block_rows) {
          R % block_rows == 0 && K % 8 == 0 && N % 8 == 0;
 }
 
+// The row-major [rows, cols] matrix at p as boxes of box_rows rows x kBox
+// columns: bf16 with the 128-byte swizzle wgmma reads, f32 as it is;
+// elements past the edges read as zeros (and TMA stores clip there). 0, or
+// minus the driver's CUresult.
+template <typename T>
+int encode_rows(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
+  const cuuint32_t box[2] = {kBox, (cuuint32_t)box_rows};
+  return hopper::encode(map, Planes<T>::value == 1, 2, p, dims, strides, box);
+}
+
+// The experts' weights [E, rows, cols] at p as a 3-D map of [kBox][kBox]
+// boxes of one expert, so a box past rows or cols reads zeros, not the next
+// expert's first rows (with a 2-D map over [E * rows, cols] only x's zero
+// columns would hide those, and a non-finite weight there would still turn
+// the sums into NaN). The C entries are not told E: the kernel reads only
+// the experts `be` names, which lie in [0, E), so the outer extent is the
+// most an int32 entry of be can name.
+template <typename T>
+int encode_experts(CUtensorMap* map, const void* p, int rows, int cols) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)INT_MAX};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(T), (cuuint64_t)rows * cols * sizeof(T)};
+  const cuuint32_t box[3] = {kBox, kBox, 1};
+  return hopper::encode(map, Planes<T>::value == 1, 3, p, dims, strides, box);
+}
+
 template <typename T, bool TRANS, bool SCALED>
 int fwd(const void* x, const void* w, const int* be, const float* s, void* y, int R, int K, int N,
         int block_rows, cudaStream_t stream) {
   if (!shapes_ok(R, K, N, block_rows)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, R / kBM);
-  return flash::launch(fwd_kernel<T, TRANS, SCALED>, grid, kThreads,
-                       smem_bytes<T, false, TRANS>(), stream, static_cast<const T*>(x),
-                       static_cast<const T*>(w), be, s, static_cast<T*>(y), R, K, N, block_rows);
-}
-
-// The row-major [rows, cols] matrix at p as boxes of kDepth rows x kBox
-// columns: bf16 with the 128-byte swizzle wgmma reads, f32 as it is;
-// columns past cols read as zeros. 0, or minus the driver's CUresult.
-template <typename T>
-int encode_rows(CUtensorMap* map, const void* p, int rows, int cols) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(T)};
-  const cuuint32_t box[2] = {kBox, kDepth};
-  return hopper::encode(map, Planes<T>::value == 1, 2, p, dims, strides, box);
+  int sms = 0, err = hopper::bind_device(&sms);
+  if (err) return err;
+  CUtensorMap xmap, wmap, ymap;
+  err = encode_rows<T>(&xmap, x, R, K, kBox);
+  if (!err) err = TRANS ? encode_experts<T>(&wmap, w, N, K) : encode_experts<T>(&wmap, w, K, N);
+  if (!err) err = encode_rows<T>(&ymap, y, R, N, kBox);
+  if (err) return err;
+  const int tiles_m = R / kBM, tiles_n = (N + kFN - 1) / kFN;
+  if ((long long)tiles_m * tiles_n > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int items = tiles_m * tiles_n;
+  const int blocks = items < sms ? items : sms;  // persistent: one block an SM
+  return flash::launch(fwd_kernel<T, TRANS, SCALED>, dim3(blocks), kThreads,
+                       (size_t)FwdLayout<T>::bytes, stream, xmap, wmap, ymap, be, s,
+                       static_cast<T*>(y), K, N, tiles_m, tiles_n, block_rows);
 }
 
 template <typename T, bool SCALED>
@@ -706,19 +698,17 @@ int dw(const void* x, const void* dy, const float* s, const int* nblocks, const 
   if (!shapes_ok(R, K, N, block_rows) || E <= 0 || E > kMaxExperts || nb != R / block_rows ||
       (SCALED && reinterpret_cast<uintptr_t>(s) % 16))
     return (int)cudaErrorInvalidValue;
-  CUtensorMap xmap, dymap;
-  int err = encode_rows<T>(&xmap, x, R, K);
-  if (!err) err = encode_rows<T>(&dymap, dy, R, N);
+  int sms = 0, err = hopper::bind_device(&sms);
   if (err) return err;
-  int dev = 0, sms = 0;
-  if ((err = (int)cudaGetDevice(&dev)) ||
-      (err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
-    return err;
+  CUtensorMap xmap, dymap;
+  err = encode_rows<T>(&xmap, x, R, K, kDepth);
+  if (!err) err = encode_rows<T>(&dymap, dy, R, N, kDepth);
+  if (err) return err;
   const int items = E * ((K + kTM - 1) / kTM) * ((N + kTN - 1) / kTN);
   const int grid = items < sms ? items : sms;
   if (grid > kMaxBlocks || (items + grid - 1) / grid > kMaxRounds)
     return (int)cudaErrorInvalidValue;
-  return flash::launch(dw_kernel<T, SCALED>, dim3(grid), kDwThreads,
+  return flash::launch(dw_kernel<T, SCALED>, dim3(grid), kThreads,
                        (size_t)DwLayout<T>::bytes, stream, xmap, dymap, s, nblocks, blist, out, K,
                        N, E, nb, block_rows);
 }
@@ -729,8 +719,8 @@ int dw(const void* x, const void* dy, const float* s, const int* nblocks, const 
 // C entries (ctypes). x, w, y (and dy) are contiguous, 16-byte aligned,
 // bf16 (bf16 = 1) or f32; be, nblocks, blist int32; s (16-byte aligned for
 // dw), dw f32. Each returns cudaGetLastError() after the launch (0 when it
-// was taken); the dw entries return minus the driver's CUresult when a
-// tensor map cannot be encoded.
+// was taken), or minus the driver's CUresult when a tensor map cannot be
+// encoded.
 
 extern "C" int gmm_fwd(const void* x, const void* w, const int* be, void* y, int R, int K, int N,
                        int block_rows, int trans, int bf16, void* stream) {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (grouped_matmul.cu's dw_kernel, flash_fwd.cu's fwd_kernel): mbarriers,
-// TMA copies, wgmma products and their shared-memory descriptors, the f32
-// hi/lo split into swizzled bf16 planes, and the tensor-map encode.
+// (grouped_matmul.cu's fwd_kernel and dw_kernel, flash_fwd.cu's
+// fwd_kernel): mbarriers, TMA copies in and out, wgmma products and their
+// shared-memory descriptors, the f32 hi/lo split into swizzled bf16
+// planes, and the tensor-map encode.
 //
 // Layout conventions. TMA lands bf16 boxes 64 columns wide (one 128-byte
 // row each) with the 128-byte swizzle: the 16-byte chunk c of box row r
@@ -73,6 +74,15 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap& map, ui
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(row)
       : "memory");
 }
+// The same for a 3-D tensor map, coordinates innermost first.
+__device__ __forceinline__ void tma_box_3d(uint32_t dst, const CUtensorMap& map, uint32_t bar,
+                                           int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 // The same for a 4-D tensor map, coordinates innermost first.
 __device__ __forceinline__ void tma_box_4d(uint32_t dst, const CUtensorMap& map, uint32_t bar,
                                            int c0, int c1, int c2, int c3) {
@@ -89,7 +99,32 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       : "memory");
 }
 
-// Generic-proxy stores to shared memory, made visible to wgmma's reads.
+// TMA store (shared -> global) of the box at shared address src to (col,
+// row) of a 2-D tensor map; elements past the tensor's edges are not
+// written. One thread issues the stores of a group, commits them, and waits
+// until at most N committed groups still read their shared source (.read)
+// before rewriting it, or are in flight at all.
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(&map)),
+      "r"(src), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Generic-proxy stores to shared memory, made visible to wgmma's reads (and
+// to TMA stores).
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -399,6 +434,17 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// The current device's SM count, with its primary context made current on
+// this thread first: the tensor-map encode is a driver call, and a thread
+// that has made no runtime call yet (autograd's backward thread, where a
+// backward may launch a kernel first) has no current context, so the
+// encode would fail with CUDA_ERROR_INVALID_CONTEXT. 0 or the cudaError_t.
+inline int bind_device(int* sms) {
+  int dev = 0, err;
+  if ((err = (int)cudaGetDevice(&dev)) || (err = (int)cudaSetDevice(dev))) return err;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // A tensor map of the rank-`rank` tensor at p (dims innermost first,

@@ -18,9 +18,9 @@ block whose output rows are zeros and cost no product.
   epilogue that carries the MoE combine's gate weights), ``gmm_dw`` for
   ``_dw_kernel`` (K7a) and ``gmm_dw_scaled`` for ``_dw_scaled_kernel``
   (K7b). The dx use reads ``w[e]`` in place as ``w[e]^T`` (no transposed
-  copy of the weights, where the JAX rule swaps the axes first). The dw
-  kernels stream x and dy through TMA into ``wgmma``; their C entries
-  encode the tensor maps from the pointers and shapes given here.
+  copy of the weights, where the JAX rule swaps the axes first). All four
+  stream their operands through TMA into ``wgmma``; their C entries encode
+  the tensor maps from the pointers and shapes given here.
 - ``_expert_block_lists``: the dw walk's per-expert block lists, as torch
   ops on the tensors' device (no host sync).
 
@@ -37,9 +37,9 @@ import ctypes
 
 import torch
 
-# Kernel limits (keep in step with csrc/grouped_matmul.cu): 128-row output
-# tiles that must not straddle a routing block, and 16-byte loads of both
-# operands' rows.
+# Kernel limits (keep in step with csrc/grouped_matmul.cu): 128-row tiles
+# that must not straddle a routing block, and operand rows a multiple of 16
+# bytes (TMA's strides).
 GMM_TILE_ROWS = 128
 # The dw kernels' output tile: rows (x's columns) x columns (dy's); the
 # most experts their item plan holds.

@@ -123,7 +123,10 @@ def variant_source(text: str, edits) -> str:
     return text
 
 
-def build_variants(names):
+def build_variants(names, variants=VARIANTS, prefix=""):
+    """name -> loaded library of each named copy of grouped_matmul.cu, its
+    edits from ``variants``, built under build/torch_kernels/variants/ as
+    ``<prefix><name>``."""
     from tf_operator_tpu_torch.ops import _build
 
     out = _build.BUILD_DIR / "variants"
@@ -133,10 +136,10 @@ def build_variants(names):
     src = (_build.CSRC / "grouped_matmul.cu").read_text()
     jobs = {}
     for name in names:
-        (out / f"{name}.cu").write_text(variant_source(src, VARIANTS[name]))
-        jobs[name] = (out / f"{name}.cu", out / f"{name}.so")
+        (out / f"{prefix}{name}.cu").write_text(variant_source(src, variants[name]))
+        jobs[name] = (out / f"{prefix}{name}.cu", out / f"{prefix}{name}.so")
     _build.compile_sources(jobs)
-    return {name: ctypes.CDLL(str(out / f"{name}.so")) for name in names}
+    return {name: ctypes.CDLL(str(out / f"{prefix}{name}.so")) for name in names}
 
 
 def block_maps(dev, E=8, B=256):
