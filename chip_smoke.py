@@ -38,9 +38,11 @@ Training path:
    and not, t of 128, 200 and 2048; moe-small's heads, 12 / 12 at d 64,
    causal, t 512 and 2048; f32 and bf16, a nonzero lse cotangent).
 8. ``flash_plant``: copies of the flash sources, each with one planted
-   fault (a key tile dropped for the last rows, a causal mask off by
-   one, a query tile dropped from dK/dV), built and run at t 2048: the
-   check of phase 7 must fail on each.
+   fault (a key tile dropped for the last rows of o or dq, a causal mask
+   off by one, a query tile dropped from dK/dV, a K-major depth step or an
+   MN-major reduction step of a forward or backward product stepped
+   wrong), built and run at t 2048: the check of phase 7 must fail on
+   each, in bf16 and in f32.
 9. ``train``: ``gqa-2048`` at full width and depth (b 6, t 2048, flash
    attention, save_mid remat, bf16, AdamW), one warmup and 8 timed steps
    through ``run_lm``: exactly 2·L forward and L of each backward kernel
@@ -53,7 +55,11 @@ Training path:
     against 3 with the plain versions.
 12. ``flash_timing``: the three kernels at the train shape beside their
     bounds, their plain versions and SDPA (forward, and the backward
-    that computes dq, dk and dv in one call).
+    that computes dq, dk and dv in one call), then at moe-small's
+    attention shape; each kernel instantiation's wgmma and TMA
+    instructions (which must be there), registers and spills (which must
+    be none) and nvcc's wgmma serialisation advisories (which must be
+    none).
 
 MoE training path:
 
@@ -902,15 +908,32 @@ FLASH_PLANTS = {
                       "return (kk >> 2) * box + (kk & 3) * 16;"),
     # p.v steps through V's MN-major boxes by 16 columns, not 16 rows
     "fwd_pv_v_step": ("fwd", "flash_fwd.cu", "return kk * 16 * kRowBytes;", "return kk * 32;"),
-    # key tile 0 dropped from dq for the last 64 query rows
+    # key tile 0 dropped from dq for the last 64 query rows; the mask then
+    # runs on every tile
     "dq_drop_tile": ("dq", "flash_bwd.cu",
-                     "const bool live = row < t && col < t && !(causal && col > row);",
-                     "const bool live = row < t && col < t && !(causal && col > row) && "
-                     "!(row >= t - 64 && col < 64);"),
-    # the last query tile never reaches dk, dv
+                     ("const bool edge = k0 + KT > t || (causal && k0 + KT - 1 > pw);",
+                      "if (col >= t || (causal && col > row)) s[4 * n + e] = 0.f;"),
+                     ("const bool edge = true;",
+                      "if (col >= t || (causal && col > row) || (row >= t - 64 && col < 64)) "
+                      "s[4 * n + e] = 0.f;")),
+    # the last query tile never reaches dk, dv; the mask then runs on every
+    # tile
     "dkv_drop_tile": ("dkv", "flash_bwd.cu",
-                      "const bool live = row < t && key < t && !(causal && key > row);",
-                      "const bool live = row < t - 64 && key < t && !(causal && key > row);"),
+                      ("const bool edge = q0 + KT > t || kw + kRows > t || "
+                       "(causal && kw + kRows - 1 > q0);",
+                       "if (col >= t || key >= t || (causal && key > col)) s[4 * n + e] = 0.f;"),
+                      ("const bool edge = true;",
+                       "if (col >= t - 64 || key >= t || (causal && key > col)) "
+                       "s[4 * n + e] = 0.f;")),
+    # the backward's MN-major products step through their B boxes by 16
+    # columns, not 16 rows: dq's dS.K on K, and (the same line, checked on
+    # the other kernel) dk/dv's dV and dK on dO and Q
+    "dq_mn_step": ("dq", "flash_bwd.cu", "return kk * 16 * kRowBytes;", "return kk * 32;"),
+    "dkv_mn_step": ("dkv", "flash_bwd.cu", "return kk * 16 * kRowBytes;", "return kk * 32;"),
+    # the backward's score products (K-major) step 16 bytes along the
+    # swizzled row a depth step of 16, not 32
+    "bwd_k_step": ("dq", "flash_bwd.cu", "return (kk >> 2) * box + (kk & 3) * 32;",
+                   "return (kk >> 2) * box + (kk & 3) * 16;"),
 }
 FLASH_KINDS = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
 FLASH_ENTRY = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
@@ -1303,38 +1326,89 @@ def phase_flash_timing(smi, b=6, t=2048, h=16, h_kv=4, d=128, dev="cuda"):
                 ("library_bwd", lambda i: torch.autograd.grad(
                     out_t, (qt, kt, vt), do_t, retain_graph=True))]}
     iters = {"kernel": 10, "plain": 3, "library": 10, "library_bwd": 10}
-    pairs = b * h * t * (t + 1) // 2  # live (query, key) pairs under causal masking
-    e2, e4 = 2, 4
-    qb, kvb, rowb = b * t * h * d * e2, b * t * h_kv * d * e2, b * h * t * e4
-    work = {  # (operations, bytes)
-        "fwd": (4 * d * pairs, qb + 2 * kvb + qb + rowb),
-        "dq": (6 * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + qb),
-        "dkv": (8 * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + 2 * kvb),
-    }
+    work = flash_work(b, t, h, h_kv, d)
     out = {}
     for kind, kfns in fns.items():
         ms, source, runs = timed_in_turns(kfns, iters)
         ops, nbytes = work[kind]
-        ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         out[kind] = {
             "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms.get("library"),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops": ops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            **bound_of(ops, nbytes), "ops": ops, "bytes": nbytes,
             "tflops": ops / ms["kernel"] / 1e9,
             "max_abs_err_bf16": max(errs[x][0] for x in FLASH_KINDS[kind]),
             "ms_source": source, "runs": {n: r for n, r in runs.items()},
         }
         if "library_bwd" in ms:  # SDPA's backward: dq, dk and dv in one call
             out["library_bwd_all_ms"] = ms["library_bwd"]
-    out["fwd_build"] = fwd_build_facts()
+    out["fwd_build"] = tma_build_facts()
+    out["bwd_build"] = tma_build_facts("flash_bwd", BWD_INSTANCES)
     out["fwd_moe_shape"] = fwd_timing_at(rng, 16, 512, 12, 12, 64, dev)
+    out["bwd_moe_shape"] = bwd_timing_at(rng, 16, 512, 12, 12, 64, dev)
     emit({"phase": "flash_timing", "shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d,
                                              "dtype": "bfloat16", "causal": True},
           "library": "scaled_dot_product_attention(is_causal, enable_gqa) on [b, h, t, d]; "
                      "its backward computes dq, dk and dv together",
           "library_max_abs_err_vs_plain": lib_err, "card": smi, **out})
     return out
+
+
+def flash_work(b, t, h, h_kv, d):
+    """{kind: (operations, bytes)} of the three flash kernels at a bf16
+    causal shape: the products on the live (query, key) pairs, each input
+    read once and each output written once."""
+    pairs = b * h * t * (t + 1) // 2  # live (query, key) pairs under causal masking
+    qb, kvb, rowb = b * t * h * d * 2, b * t * h_kv * d * 2, b * h * t * 4
+    return {
+        "fwd": (4 * d * pairs, qb + 2 * kvb + qb + rowb),
+        "dq": (6 * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + qb),
+        "dkv": (8 * d * pairs, 2 * qb + 2 * kvb + 2 * rowb + 2 * kvb),
+    }
+
+
+def bound_of(ops, nbytes):
+    """The least time for ``ops`` bf16 operations and ``nbytes`` bytes: the
+    larger of the two at the card's peaks, and which it is."""
+    ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+
+
+def bwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
+    """K2 and K3 at another shape (bf16, causal): checked against their
+    plain versions, then timed beside their bounds and SDPA's backward
+    (dq, dk and dv in one call)."""
+    q, k, v, do, dlse = flash_case(rng, b, t, h, h_kv, d, torch.bfloat16, dev)
+    o, lse = fa.flash_fwd_kernel(q, k, v, True)
+    lse_k, delta = fa.lse_kernel_layout(lse), fa.flash_delta(o, do, dlse)
+    f32 = [x.float() for x in (q, k, v, do)]
+    got = {"dq": (fa.flash_bwd_dq_kernel(q, k, v, do, lse_k, delta, True),),
+           "dkv": fa.flash_bwd_dkv_kernel(q, k, v, do, lse_k, delta, True)}
+    want = {"dq": (fa.flash_bwd_dq_reference(*f32, lse_k, delta, True),),
+            "dkv": fa.flash_bwd_dkv_reference(*f32, lse_k, delta, True)}
+    err = {}
+    for kind in got:
+        for name, x, w in zip(FLASH_KINDS[kind], got[kind], want[kind]):
+            diff = (x.float() - w).abs()
+            check(bool((diff <= flash_limit(name, w, torch.bfloat16)).all()),
+                  f"flash {name} at b{b} t{t} h{h}/{h_kv} d{d}: max abs err {float(diff.max())}")
+            err[kind] = max(err.get(kind, 0.0), float(diff.max()))
+    del got, want, f32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    out_t = sdpa(qt, kt, vt, is_causal=True, enable_gqa=h_kv != h)
+    do_t = do.transpose(1, 2).contiguous()
+    ms, source, runs = timed_in_turns(
+        [("dq", lambda i: fa.flash_bwd_dq_kernel(q, k, v, do, lse_k, delta, True)),
+         ("dkv", lambda i: fa.flash_bwd_dkv_kernel(q, k, v, do, lse_k, delta, True)),
+         ("library_bwd", lambda i: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                       retain_graph=True))],
+        {"dq": 20, "dkv": 20, "library_bwd": 20})
+    work = flash_work(b, t, h, h_kv, d)
+    return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d},
+            **{kind: {"ms": ms[kind], **bound_of(*work[kind]), "tflops": work[kind][0] / ms[kind]
+                      / 1e9, "max_abs_err": err[kind]} for kind in ("dq", "dkv")},
+            "library_bwd_all_ms": ms["library_bwd"], "ms_source": source, "runs": runs}
 
 
 def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
@@ -1353,12 +1427,9 @@ def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
         [("kernel", lambda i: fa.flash_fwd_kernel(q, k, v, True)),
          ("library", lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=h_kv != h))],
         {"kernel": 20, "library": 20})
-    ops = 4 * d * (b * h * t * (t + 1) // 2)
-    nbytes = (2 * h + 2 * h_kv) * b * t * d * 2 + b * h * t * 4  # q, k, v, o; lse
-    ops_ms, bytes_ms = ops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops, nbytes = flash_work(b, t, h, h_kv, d)["fwd"]
     return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d}, "ms": ms["kernel"],
-            "library_ms": ms["library"], "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": ms["library"], **bound_of(ops, nbytes),
             "tflops": ops / ms["kernel"] / 1e9, "max_abs_err": float(err.max()),
             "ms_source": source, "runs": runs}
 
@@ -1657,11 +1728,16 @@ def dw_build_facts(key, rows, k, n):
             "operand_bytes": rows * tiles * (tm + tn) * 2}
 
 
-# The forward kernel's instantiations, fwd_kernel<T, DP> (DP: d padded to
-# 64 or 128), by a piece of their mangled names.
+# The flash kernels' instantiations, fwd_kernel<T, DP>, dq_kernel<T, DP>
+# and dkv_kernel<T, DP> (DP: d padded to 64 or 128), by a piece of their
+# mangled names.
 FWD_INSTANCES = {"bf16_dp128": "fwd_kernelI13__nv_bfloat16Li128EE",
                  "bf16_dp64": "fwd_kernelI13__nv_bfloat16Li64EE",
                  "f32_dp128": "fwd_kernelIfLi128EE", "f32_dp64": "fwd_kernelIfLi64EE"}
+BWD_INSTANCES = {f"{kind}_{key}": f"{kind}_kernel{piece}" for kind in ("dq", "dkv")
+                 for key, piece in (("bf16_dp128", "I13__nv_bfloat16Li128EE"),
+                                    ("bf16_dp64", "I13__nv_bfloat16Li64EE"),
+                                    ("f32_dp128", "IfLi128EE"), ("f32_dp64", "IfLi64EE"))}
 
 
 # The grouped-matmul forward's instantiations, fwd_kernel<T, TRANS,
@@ -1673,11 +1749,20 @@ GMM_FWD_INSTANCES = {"k5": "fwd_kernelI13__nv_bfloat16Lb0ELb0E",
                      "k6_f32": "fwd_kernelIfLb0ELb1E"}
 
 
-def fwd_build_facts(lib="flash_fwd", instances=FWD_INSTANCES):
-    """The instantiations of a TMA + wgmma forward (K1's by default; the
-    grouped matmul's with GMM_FWD_INSTANCES) from their build: wgmma
-    (HGMMA) and TMA (UTMALDG) instructions, each above zero, no mma.sync
-    (HMMA), and their registers and spill bytes, which must be 0."""
+def wgmma_advisories(log, piece):
+    """nvcc's advisories that ptxas serialises a kernel's wgmma (C7512,
+    C7514, C7520) about the kernel whose mangled name holds ``piece``, or
+    naming no kernel."""
+    return [ln.strip() for ln in log.splitlines()
+            if re.search(r"C75(12|14|20)", ln) and (piece in ln or "_Z" not in ln)]
+
+
+def tma_build_facts(lib="flash_fwd", instances=FWD_INSTANCES):
+    """The instantiations of a TMA + wgmma kernel (K1's by default; the
+    backward's with BWD_INSTANCES, the grouped matmul's forward with
+    GMM_FWD_INSTANCES) from their build: wgmma (HGMMA) and TMA (UTMALDG)
+    instructions, each above zero, no mma.sync (HMMA), their registers and
+    spill bytes, which must be 0, and no wgmma serialisation advisory."""
     out = {}
     for key, piece in instances.items():
         sass, usage = build_facts(lib, piece, ("HGMMA", "UTMALDG", "HMMA"))
@@ -1685,6 +1770,8 @@ def fwd_build_facts(lib="flash_fwd", instances=FWD_INSTANCES):
               f"{lib} {key}: not a TMA + wgmma kernel by its SASS: {sass}")
         check(usage.get("spill_stores", 0) == 0 and usage.get("spill_loads", 0) == 0,
               f"{lib} {key}: spills registers: {usage}")
+        advisories = wgmma_advisories(_build.build_log[lib][1], piece)
+        check(not advisories, f"{lib} {key}: ptxas serialises its wgmma: {advisories}")
         out[key] = {"sass": sass, "ptxas": usage}
     return out
 
@@ -1787,7 +1874,7 @@ def phase_gmm_timing(smi, dev="cuda", tokens=8192, E=8, d=768, f=3072, B=256):
             # PyTorch ops (_expert_block_lists) the wrapper runs before it
             out[name]["dw_kernel_ms"], out[name]["block_lists_ms"] = device_ms_split(
                 kern, 20, "dw_kernel")
-    out["fwd_build"] = fwd_build_facts("grouped_matmul", GMM_FWD_INSTANCES)
+    out["fwd_build"] = tma_build_facts("grouped_matmul", GMM_FWD_INSTANCES)
     emit({"phase": "gmm_timing", "shape": {"tokens": tokens, "experts": E, "block_rows": B,
                                            "rows": R, "computed_rows": rows, "d": d, "f": f,
                                            "dtype": "bfloat16"},
@@ -2299,13 +2386,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
+        # moe-small's attention shape, which its path launches 24 (forward)
+        # or 12 (backward) times a step too
         if kind != "fwd":
             # no library call computes dq (or dk, dv) alone; SDPA's backward
             # computes all three in one call, timed here as a yardstick
             kernels[-1]["library_bwd_all_ms"] = ft["library_bwd_all_ms"]
+            m = ft["bwd_moe_shape"]
+            kernels[-1]["moe_shape"] = {"shape": m["shape"], "ms": m[kind]["ms"],
+                                        "bound_ms": m[kind]["bound_ms"],
+                                        "library_bwd_all_ms": m["library_bwd_all_ms"]}
         else:
-            # moe-small's attention shape, which its path launches 24 times
-            # a step too
             m = ft["fwd_moe_shape"]
             kernels[-1]["moe_shape"] = {x: m[x] for x in ("shape", "ms", "library_ms", "bound_ms")}
     for key, name, line, counter in (

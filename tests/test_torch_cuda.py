@@ -127,9 +127,10 @@ def test_flash_kernels_match_plain(dev, dtype, b, t, h, h_kv, d, causal):
 @pytest.mark.parametrize("name", sorted(FLASH_PLANTS))
 def test_flash_check_fails_on_planted_fault(dev, name):
     """A copy of a kernel with one planted fault (a key tile dropped for the
-    last rows, a causal mask off by one, the forward's q.k^T or p.v
-    descriptors stepped wrong, a query tile dropped from dk/dv) fails the
-    check that the real kernels pass, in both types."""
+    last rows of o or dq, a causal mask off by one, a query tile dropped
+    from dk/dv, the forward's q.k^T or p.v descriptors, the backward's
+    score descriptors or its MN-major dS.K, dV or dK descriptors stepped
+    wrong) fails the check that the real kernels pass, in both types."""
     lib = build_plants([name])[name]
     kind = FLASH_PLANTS[name][0]
     rng = np.random.RandomState(24)

@@ -117,7 +117,21 @@ def test_flash_wrapper_checks_refuse_bad_arguments(monkeypatch):
     for kind in ("fwd", "dq", "dkv"):
         for dt in (torch.bfloat16, torch.float32):
             assert fa.flash_smem_bytes(kind, dt, fa.FLASH_MAX_D) <= fa.FLASH_MAX_SMEM
-    assert fa.flash_smem_bytes("dkv", torch.float32, 16) == 6 * 2 * 64 * 24 * 2 + 4 * 64 * 4
+    # the backward: slots of one landed 64 x 64 box (8 KB bf16; 16 KB f32,
+    # split in place into hi and lo planes), two a row at d 128. dq: Q and
+    # dO of 2 x 64 rows in one buffer, K and V of 64 keys in four stages,
+    # 10 mbarriers; f32 one stage, 4 mbarriers. dkv: K and V of 2 x 64 keys,
+    # Q and dO of 64 queries in two stages, two buffers of 64 lse and 64
+    # delta for each of 8 consumer warps, 6 mbarriers; f32 64 keys, one
+    # stage, 4 consumer warps, 4 mbarriers
+    assert fa.flash_smem_bytes("dq", torch.bfloat16, 128) == (
+        4 * 2 * 8192 + 4 * (2 * 2 * 8192) + 10 * 8 + 1024)
+    assert fa.flash_smem_bytes("dq", torch.float32, 128) == (
+        4 * 2 * 16384 + 2 * 2 * 16384 + 4 * 8 + 1024)
+    assert fa.flash_smem_bytes("dkv", torch.bfloat16, 128) == (
+        4 * 2 * 8192 + 2 * (2 * 2 * 8192) + 8 * 2 * 2 * 64 * 4 + 6 * 8 + 1024)
+    assert fa.flash_smem_bytes("dkv", torch.float32, 16) == (
+        2 * 16384 + 2 * 16384 + 4 * 2 * 2 * 64 * 4 + 4 * 8 + 1024)
     # the forward: 256-byte rows at d 128 (two 64-column boxes), Q's 2 x 64
     # rows in two buffers, K's and V's 64 keys in five stages, 14
     # mbarriers, 1024 to align; f32 keeps one Q in hi and lo planes, lands

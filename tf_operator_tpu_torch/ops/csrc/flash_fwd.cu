@@ -49,7 +49,7 @@
 //     planes in the swizzled layout (Q once an item, K and V each tile), P
 //     is split in registers, and each product is hi.hi + hi.lo + lo.hi;
 //     P.V's three go into a fresh sum that is then added to O (see
-//     flash_common.cuh's mma for why), so the f32 check vouches for the
+//     flash_common.cuh for why), so the f32 check vouches for the
 //     bf16 kernel's masks, walk and descriptors.
 // Measured against variants of this source (tools/flash_fwd_variants.py,
 // PERF.md): 128-key tiles, 2 stages, one block an item, a round-robin

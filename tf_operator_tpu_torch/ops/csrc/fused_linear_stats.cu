@@ -179,7 +179,7 @@ __device__ __forceinline__ void frag_b(uint32_t (*b)[4], const bf16* tile, int p
 
 // c += A.B over 16 x 8 (B the 8-column block nb of fragments b), through a
 // fresh accumulator added on the CUDA cores (see the header); split f32:
-// hi.hi + hi.lo + lo.hi, as flash::mma<2>.
+// hi.hi + hi.lo + lo.hi (flash_common.cuh).
 template <int P>
 __device__ __forceinline__ void mma_fresh(float* c, uint32_t (*a)[4], uint32_t (*b)[4], int nb) {
   float part[4] = {0.f, 0.f, 0.f, 0.f};

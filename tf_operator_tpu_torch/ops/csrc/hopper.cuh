@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (grouped_matmul.cu's fwd_kernel and dw_kernel, flash_fwd.cu's
-// fwd_kernel): mbarriers, TMA copies in and out, wgmma products and their
+// fwd_kernel, flash_bwd.cu's dq_kernel and dkv_kernel): mbarriers, TMA copies in and out, wgmma products and their
 // shared-memory descriptors, the f32 hi/lo split into swizzled bf16
 // planes, and the tensor-map encode.
 //

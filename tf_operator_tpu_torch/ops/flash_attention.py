@@ -201,12 +201,12 @@ flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
-# Kernel limits (keep in step with csrc/flash_common.cuh and
-# csrc/flash_fwd.cu): the backward's square tiles of FLASH_TILE rows, head
-# dims that are multiples of 16 and at most FLASH_MAX_D (the tiles live in
-# registers), and at most FLASH_MAX_SMEM bytes of dynamic shared memory
-# (the H100's per-block opt-in limit). bf16 and f32 run the same kernels;
-# f32 tiles are stored as two bf16 planes (hi and lo).
+# Kernel limits (keep in step with csrc/flash_fwd.cu and csrc/flash_bwd.cu):
+# tiles of FLASH_TILE rows (queries or keys), TMA boxes of 64 columns (d
+# padded to 64 or 128), head dims that are multiples of 16 and at most
+# FLASH_MAX_D (the sums live in registers), and at most FLASH_MAX_SMEM bytes
+# of dynamic shared memory (the H100's per-block opt-in limit). bf16 and
+# f32 run the same kernels; f32 operands become two bf16 planes (hi and lo).
 FLASH_TILE = 64
 FLASH_MAX_D = 128
 FLASH_MAX_SMEM = 232448
@@ -337,9 +337,26 @@ def flash_smem_bytes(kind: str, dtype: torch.dtype, d: int) -> int:
         stages, qbufs = (1, 1) if planes == 2 else (5, 2)
         split = 2 * kv if planes == 2 else 0
         return 2 * q + stages * planes * kv + split + 2 * (stages + qbufs) * 8 + 1024
-    # tiles [planes, 64, d + 8] bf16; Q/dO (or K/V) double-buffered
-    tile = planes * FLASH_TILE * (d + 8) * 2
-    return {"dq": 6 * tile, "dkv": 6 * tile + 4 * FLASH_TILE * 4}[kind]
+    # DqLayout, DkvLayout: d padded to 1 or 2 boxes of 64 columns; a slot
+    # holds one landed box of 64 rows (f32: split in place into its bf16 hi
+    # and lo planes)
+    boxes = 1 if d <= 64 else 2
+    slot = FLASH_TILE * 64 * 2 * planes
+    if kind == "dq":
+        # Q, then dO, of both warpgroups in one buffer at d > 64 (two below;
+        # f32: one); K, then V, of a 64-key tile a stage, 4 stages at d > 64,
+        # 5 below (f32: 1)
+        stages, qbufs = (1, 1) if planes == 2 else ((4, 1) if boxes == 2 else (5, 2))
+        return (qbufs * 4 * boxes * slot + stages * 2 * boxes * slot
+                + 2 * (stages + qbufs) * 8 + 1024)
+    # dkv: the item's K, then V, of 2 x 64 keys at d > 64 (below and f32:
+    # 64); Q, then dO, of a 64-query tile a stage, 2 stages at d > 64, 3
+    # below (f32: 1); each consumer warp's (4 a group of 64 keys) two
+    # buffers of a tile's 64 lse and 64 delta
+    groups = 2 if planes == 1 and boxes == 2 else 1
+    stages = 1 if planes == 2 else (2 if boxes == 2 else 3)
+    return (2 * groups * boxes * slot + stages * 2 * boxes * slot
+            + 4 * groups * 2 * 2 * FLASH_TILE * 4 + 2 * (stages + 1) * 8 + 1024)
 
 
 def check_flash_args(kind, q, k, v, do=None, lse=None, delta=None) -> None:
