@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
+    DECODE_PLANTS,
     FLASH_PLANTS,
     FLS_PLANTS,
     FLS_STATS_C,
@@ -20,6 +21,8 @@ from chip_smoke import (  # noqa: E402
     compare_flash,
     compare_fls,
     compare_gmm,
+    compare_kernel,
+    decode_planted,
     flash_case,
     flash_within,
     fls_case,
@@ -88,6 +91,41 @@ def test_paged_decode_kernel_refuses_unsupported(dev):
         fa.flash_attention_decode(q.half(), k.half(), v.half(), table, lens)
     with pytest.raises(TypeError, match="int32"):
         fa.flash_attention_decode(q, k, v, table.long(), lens)
+
+
+@pytest.mark.parametrize("page", [8, 16])
+def test_paged_decode_kernel_split_edges(dev, page):
+    """8 sequences x 8 kv heads over a 12-page table, 5 splits a walk.
+    Live pages 10 and 5 end exactly on split boundaries (runs of 2 and 1,
+    at a page end), 12 and 11 leave the last split empty, 6 (one position
+    into its last page) leaves two empty, 3 gives more splits than live
+    pages, 1 is a single page, 0 an empty row; the kernel against the
+    plain version and the split-and-merge arithmetic."""
+    s, h, h_kv, d = 8, 16, 8, 64
+    lengths = [n * page // 8 for n in (80, 40, 96, 85, 3, 20, 0, 41)]
+    args = paged_case(np.random.RandomState(14), lengths, page, h, h_kv, d, dev)
+    assert args[3].shape[1] == 12
+    got = fa.paged_decode_kernel(*args, splits=5)
+    want = fa.paged_decode_reference(*args)
+    split = fa.paged_decode_split_reference(*(a.cpu() for a in args), 5)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+    torch.testing.assert_close(got.cpu(), split, atol=ATOL, rtol=0)
+    assert bool((got[args[4] == 0] == 0).all())
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_PLANTS))
+def test_decode_check_fails_on_planted_fault(dev, name):
+    """A copy of the paged-decode source with one planted fault fails the
+    comparison the real kernel passes (ragged GQA lengths, several splits
+    a walk)."""
+    lib = build_plants([name], DECODE_PLANTS)[name]
+    args = paged_case(np.random.RandomState(15), [0, 1, 5, 16, 23, 300, 1000], 16, 16, 4, 128,
+                      dev)
+    err, zeros = compare_kernel(*args)
+    assert err <= ATOL and zeros
+    with decode_planted(lib):
+        err, zeros = compare_kernel(*args)
+    assert err > ATOL or not zeros, (name, err)
 
 
 def test_tiny_engine_card_matches_cpu(dev):
@@ -285,8 +323,9 @@ def test_fls_kernel_matches_plain(dev, dtype, prologue, m, k, n):
 def test_fls_check_fails_on_planted_fault(dev, name):
     """A copy of K8 with one planted fault (a row tile left out of the
     statistics, statistics from the rounded y, the prologue's ReLU
-    dropped) fails the check the real kernel passes, in some case of
-    both types with and without the prologue."""
+    dropped, x's wgmma descriptors stepped wrong) fails the check the real
+    kernel passes, in some case of both types with and without the
+    prologue."""
     lib = build_plants([name], FLS_PLANTS)[name]
     gen = torch.Generator(dev).manual_seed(42)
     cases = [fls_case(gen, 1000, 72, 40, dtype, dev, prologue)

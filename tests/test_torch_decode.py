@@ -147,6 +147,35 @@ def test_prefill_style_shared_row():
     assert np.all(got[6:] == 0.0)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 64])
+def test_split_reference_matches_jax(splits):
+    """The kernel's split-and-merge arithmetic (paged_decode_split_reference)
+    against JAX's one-pass reference, f32: runs from one page to all of a
+    row's pages, run ends on and off page and split boundaries, large
+    stale values in every unwritten slot, seq_len == 0 rows (exact zeros,
+    as from the one-pass port) and, at 64 splits, more splits than live
+    pages."""
+    lengths = [0, 1, 8, 9, 23, 40, 0, 57]
+    args = _paged(lengths, PAGE, 8, 2, 16, seed=21, scramble=True, stale=1e4)
+    got = tfa.paged_decode_split_reference(*(torch.from_numpy(a) for a in args), splits).numpy()
+    want = _jax_ref(*args)
+    live = args[4] > 0
+    np.testing.assert_allclose(got[live], want[live], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, _port(*args), atol=1e-5, rtol=1e-5)
+    assert np.all(got[~live] == 0.0)
+
+
+def test_decode_splits_from_shapes():
+    """The kernel's split count comes from the shapes alone: ~2 blocks an
+    SM of an H100 SXM (132 SMs) at the serve shape, never more splits than
+    table slots, at least one."""
+    assert tfa.decode_splits(8, 4, 256, 2 * 132) == 9
+    assert tfa.decode_splits(8, 4, 3, 2 * 132) == 3
+    assert tfa.decode_splits(600, 1, 256, 2 * 132) == 1
+    assert tfa.decode_splits(1, 1, 0, 2 * 132) == 1
+    assert tfa.decode_splits(8, 4, 256, 2 * 114) == 8
+
+
 @pytest.mark.parametrize("bad,match", [
     (dict(q_shape=(3, 4)), "decode shapes"),
     (dict(v_heads=1), "k/v pool mismatch"),
@@ -202,6 +231,7 @@ def test_kernel_wrapper_refuses(edit, exc, match):
     (dict(d=18), "multiple of 4"),
     (dict(page=64), "page_size"),
     (dict(h=32, h_kv=2, d=128), "group"),
+    (dict(d=256), "at most 128"),
 ])
 def test_kernel_wrapper_refuses_sizes(kw, match):
     with pytest.raises(ValueError, match=match):

@@ -1,6 +1,5 @@
 // Pieces shared by the port's CUDA kernels: the element type's planes and
-// the f32 split (every kernel), the bf16 packing, the mma.sync.m16n8k16
-// fragments with ldmatrix and cp.async (K8, fused_linear_stats.cu), and the
+// the f32 split, the bf16 packing, the register fragment layout, and the
 // launch. The TMA + wgmma helpers are in hopper.cuh, which includes this
 // file.
 //
@@ -58,7 +57,7 @@ __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi, uin
 }
 
 // ---------------------------------------------------------------------------
-// mma.m16n8k16 fragments, ldmatrix, cp.async
+// register fragments
 // ---------------------------------------------------------------------------
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, q = lane % 4):
@@ -70,36 +69,6 @@ __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi, uin
 // the A fragment of the next product over those 16 columns. wgmma's sums
 // and its A operand from registers take the same layouts, a warp's 16 rows
 // each.
-
-// 16-byte global -> shared copy; zero-fills when !valid (src unread).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Set a block-size-dependent dynamic shared memory limit above 48 KB and
 // launch; returns cudaGetLastError() so a refused launch reaches Python.

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
 // (grouped_matmul.cu's fwd_kernel and dw_kernel, flash_fwd.cu's
-// fwd_kernel, flash_bwd.cu's dq_kernel and dkv_kernel): mbarriers, TMA copies in and out, wgmma products and their
-// shared-memory descriptors, the f32 hi/lo split into swizzled bf16
-// planes, and the tensor-map encode.
+// fwd_kernel, flash_bwd.cu's dq_kernel and dkv_kernel,
+// fused_linear_stats.cu's fls_kernel): mbarriers, TMA copies in and out,
+// wgmma products and their shared-memory descriptors, the f32 hi/lo split
+// into swizzled bf16 planes, and the tensor-map encode; and the per-thread
+// cp.async copies of paged_decode.cu's split_kernel.
 //
 // Layout conventions. TMA lands bf16 boxes 64 columns wide (one 128-byte
 // row each) with the 128-byte swizzle: the 16-byte chunk c of box row r
@@ -121,6 +123,26 @@ __device__ __forceinline__ void bulk_wait_read() {
 template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (16 bytes a thread, global -> shared, in commit groups)
+// ---------------------------------------------------------------------------
+//
+// For loads no TMA box describes, such as pages found through a page table.
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(flash::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Returns once at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Generic-proxy stores to shared memory, made visible to wgmma's reads (and

@@ -18,6 +18,9 @@ Port of ``tf_operator_tpu/ops/flash_attention.py``:
   ``csrc/paged_decode.cu``, for the TPU's ``_decode_kernel``). One query
   token per sequence attends over that sequence's K/V, held in fixed-size
   pages of a pool (the serve/kvcache.py layout) and named by a page table.
+  The kernel splits each walk over the live pages across blocks and merges
+  the partials; ``paged_decode_split_reference`` is that arithmetic in
+  plain PyTorch, for the tests.
 
 Dispatch is by the tensors' device, never by a fallback: CPU tensors go
 to the plain versions; CUDA tensors go to the kernels or the call raises.
@@ -38,15 +41,39 @@ import torch
 
 NEG_INF = -1e30  # large-negative, not -inf: exp() of a masked score is 0, never nan
 
-# Kernel limits (keep in step with csrc/paged_decode.cu).
-KERNEL_THREADS = 128
-KERNEL_MAX_GD = KERNEL_THREADS * 8   # g * d: per-thread f32 accumulators
-KERNEL_MAX_PAGE = 32                 # one warp lane per page position
-KERNEL_MAX_SMEM = 48 * 1024          # static launch limit, no opt-in attribute
+# Kernel limits (keep in step with csrc/paged_decode.cu): one float4 of d a
+# lane, 8 positions of a page a warp, g query rows in registers.
+KERNEL_MAX_D = 128
+KERNEL_MAX_PAGE = 32
+KERNEL_MAX_GROUP = 8
+KERNEL_MAX_SPLITS = 65535  # the grid's z extent
+# Blocks a decode launch aims at, per SM of the card: all resident at once
+# (paged_decode.cu takes up to 3 an SM at 64 KB of ring each). Of 1, 2, 4
+# and 8 an SM, 2 was the fastest on an H100 at the serve shape and at a
+# long context together (PERF.md).
+_DECODE_BLOCKS_PER_SM = 2
 
 decode_launches = 0  # launches of the CUDA kernel in this process
 
 _fn = None
+_sm_counts: dict[int, int] = {}  # CUDA device index -> its SM count
+
+
+def decode_target_blocks(device: torch.device) -> int:
+    """Blocks a decode launch on this CUDA device aims at: 2 an SM."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _DECODE_BLOCKS_PER_SM * _sm_counts[index]
+
+
+def decode_splits(s: int, h_kv: int, max_pages: int, target_blocks: int) -> int:
+    """Splits of each (sequence, kv head) walk of the paged-decode kernel:
+    about ``target_blocks`` blocks in all, from the shapes alone (seq_lens
+    live on the card, and reading them would sync the host once per
+    layer), at most one per table slot. The kernel gives split j the j-th
+    run of ceil(n_live / splits) live pages."""
+    return max(1, min(max_pages, -(-target_blocks // max(1, s * h_kv))))
 
 
 def paged_decode_reference(q, k_pages, v_pages, page_table, seq_lens):
@@ -78,6 +105,43 @@ def paged_decode_reference(q, k_pages, v_pages, page_table, seq_lens):
     return out.reshape(s_n, h, d).to(q.dtype)
 
 
+def paged_decode_split_reference(q, k_pages, v_pages, page_table, seq_lens, splits: int):
+    """Plain paged decode computed as the kernel splits it, for tests: each
+    row's n_live = ceil(seq_len / page) live pages cut into runs of
+    ceil(n_live / splits) pages, each run's (max, sum, unnormalised output)
+    over its unmasked positions, and the runs merged in order with the
+    log-sum-exp rescale. Same contract as paged_decode_reference."""
+    s_n, h, d = q.shape
+    _, page_size, h_kv, _ = k_pages.shape
+    g = h // h_kv
+    out = torch.zeros(s_n, h_kv, g, d, dtype=torch.float32)
+    qs = q.reshape(s_n, h_kv, g, d).float() * d**-0.5
+    for i in range(s_n):
+        n_live = min(-(-int(seq_lens[i]) // page_size), page_table.shape[1])
+        if n_live <= 0:
+            continue
+        run = -(-n_live // splits)
+        parts = []
+        for p0 in range(0, n_live, run):
+            pages = page_table[i, p0: min(p0 + run, n_live)].long()
+            k = k_pages[pages].reshape(-1, h_kv, d).float()
+            v = v_pages[pages].reshape(-1, h_kv, d).float()
+            live = p0 * page_size + torch.arange(k.shape[0]) < int(seq_lens[i])
+            sc = torch.where(live, torch.einsum("hgd,thd->hgt", qs[i], k), NEG_INF)
+            m = sc.amax(dim=-1, keepdim=True)  # finite: a run's first position is live
+            pr = torch.where(live, torch.exp(sc - m), 0.0)
+            parts.append((m, pr.sum(dim=-1, keepdim=True), torch.einsum("hgt,thd->hgd", pr, v)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        o = torch.zeros(h_kv, g, d)
+        lsum = torch.zeros(h_kv, g, 1)
+        for m, l, acc in parts:
+            c = torch.exp(m - mx)
+            o = o + acc * c
+            lsum = lsum + l * c
+        out[i] = o / lsum
+    return out.reshape(s_n, h, d).to(q.dtype)
+
+
 def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens) -> None:
     """Raise on anything the CUDA kernel does not take."""
     s_n, h, d = q.shape
@@ -88,8 +152,8 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens) -> None:
             raise TypeError(f"paged_decode kernel: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"paged_decode kernel: {name} must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_decode kernel: K/V pools must be 16-byte aligned")
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_decode kernel: q and the K/V pools must be 16-byte aligned")
     for name, t in (("page_table", page_table), ("seq_lens", seq_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"paged_decode kernel: {name} must be int32, got {t.dtype}")
@@ -102,15 +166,36 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, seq_lens) -> None:
     devs = {t.device for t in (q, k_pages, v_pages, page_table, seq_lens)}
     if len(devs) != 1:
         raise ValueError(f"paged_decode: tensors on several devices {devs}")
-    if d % 4:
-        raise ValueError(f"paged_decode kernel: head_dim {d} must be a multiple of 4")
+    if d % 4 or d > KERNEL_MAX_D:
+        raise ValueError(f"paged_decode kernel: head_dim {d} must be a multiple of 4 "
+                         f"and at most {KERNEL_MAX_D}")
     if not 1 <= page_size <= KERNEL_MAX_PAGE:
         raise ValueError(f"paged_decode kernel: page_size {page_size} not in [1, {KERNEL_MAX_PAGE}]")
-    if g * d > KERNEL_MAX_GD:
-        raise ValueError(f"paged_decode kernel: group {g} x head_dim {d} > {KERNEL_MAX_GD}")
-    smem = 4 * (g * d + 2 * page_size * d + g * page_size + 3 * g)
-    if smem > KERNEL_MAX_SMEM:
-        raise ValueError(f"paged_decode kernel: needs {smem} bytes of shared memory > {KERNEL_MAX_SMEM}")
+    if g > KERNEL_MAX_GROUP:
+        raise ValueError(f"paged_decode kernel: group {g} (heads {h} / kv heads {h_kv}) "
+                         f"> {KERNEL_MAX_GROUP}")
+
+
+# C entry -> argument types: every pointer and the stream as c_void_p (an
+# undeclared argument passes as a 32-bit int and cuts the pointer).
+DECODE_ENTRY = "paged_decode_f32"
+DECODE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
+    ctypes.c_void_p, ctypes.c_longlong,                 # table, row stride
+    ctypes.c_void_p, ctypes.c_void_p,                   # seq_lens, out
+    ctypes.c_void_p, ctypes.c_void_p,                   # part_o, part_ml (scratch)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s, h, h_kv, d
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # page_size, max_pages, splits
+    ctypes.c_float, ctypes.c_void_p,                    # scale, stream
+]
+
+
+def bind_decode_entry(lib: ctypes.CDLL):
+    """The typed C entry of a loaded paged_decode library."""
+    fn = getattr(lib, DECODE_ENTRY)
+    fn.argtypes = DECODE_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _kernel_fn():
@@ -118,28 +203,19 @@ def _kernel_fn():
     if _fn is None:
         from tf_operator_tpu_torch.ops import _build
 
-        fn = _build.load("paged_decode").paged_decode_f32
-        # Every pointer and the stream as c_void_p: an undeclared argument
-        # passes as a 32-bit int and cuts the pointer.
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
-            ctypes.c_void_p, ctypes.c_longlong,                 # table, row stride
-            ctypes.c_void_p, ctypes.c_void_p,                   # seq_lens, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # s, h, h_kv, d
-            ctypes.c_int, ctypes.c_int,                         # page_size, max_pages
-            ctypes.c_float, ctypes.c_void_p,                    # scale, stream
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = bind_decode_entry(_build.load("paged_decode"))
     return _fn
 
 
-def paged_decode_kernel(q, k_pages, v_pages, page_table, seq_lens):
+def paged_decode_kernel(q, k_pages, v_pages, page_table, seq_lens, splits: int | None = None):
     """Launch the Hopper kernel on CUDA tensors (raises on anything else).
 
     Types, shapes, strides and sizes are checked here; the page ids of
     each live prefix are not (that would wait for the device): they must
-    lie in [0, n_pages), as the engine's allocator guarantees."""
+    lie in [0, n_pages), as the engine's allocator guarantees. ``splits``
+    is the number of blocks each (sequence, kv head) walk is cut into;
+    None takes decode_splits for this card. The kernel's per-split
+    partials go to scratch allocated here."""
     global decode_launches
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode kernel needs CUDA tensors, got {q.device}")
@@ -149,13 +225,20 @@ def paged_decode_kernel(q, k_pages, v_pages, page_table, seq_lens):
     out = torch.empty_like(q)
     if s_n == 0:
         return out
+    if splits is None:
+        splits = decode_splits(s_n, h_kv, page_table.shape[1], decode_target_blocks(q.device))
+    if not 1 <= splits <= KERNEL_MAX_SPLITS:
+        raise ValueError(f"paged_decode kernel: splits {splits} not in [1, {KERNEL_MAX_SPLITS}]")
+    part_o = torch.empty(s_n, h, splits, d, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(s_n, h, splits, 2, dtype=torch.float32, device=q.device)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), page_table.stride(0), seq_lens.data_ptr(),
-            out.data_ptr(), s_n, h, h_kv, d, page_size, page_table.shape[1],
-            d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
+            out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), s_n, h, h_kv, d,
+            page_size, page_table.shape[1], splits, d**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError_t {err}")

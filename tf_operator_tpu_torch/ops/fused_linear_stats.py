@@ -19,8 +19,8 @@ instead of another pass over it.
   and the CPU keep them in f32.
 - ``_reference``: the plain version (the same math as JAX's ``_reference``).
 - ``fused_linear_stats_kernel``: K8 (``csrc/fused_linear_stats.cu``, for
-  the TPU's ``_kernel``). It writes one partial row of statistics per
-  128-row tile; the wrapper sums them.
+  the TPU's ``_kernel``), and a second kernel that sums its blocks'
+  partial rows of statistics.
 
 Dispatch is by the tensors' device, never by a fallback: CPU tensors go to
 the plain version; CUDA tensors go to the kernel or the call raises.
@@ -36,9 +36,9 @@ from typing import Optional, Tuple
 import torch
 
 # Kernel limits (keep in step with csrc/fused_linear_stats.cu): 128-row
-# output tiles, at most 65535 of them; 16-byte rows of x, w and y.
+# output tiles (at most two partial rows of statistics each); 16-byte rows
+# of x, w and y.
 FLS_TILE_M = 128
-FLS_MAX_TILES = 65535
 FLS_DTYPES = (torch.bfloat16, torch.float32)
 
 fused_linear_stats_launches = 0  # launches of the CUDA kernel in this process
@@ -81,8 +81,6 @@ def check_kernel_args(x, w, a, b) -> Tuple[int, int, int]:
     if K % 8 or N % 8:
         raise ValueError(f"fused_linear_stats kernel: K {K} and N {N} must be multiples of 8 "
                          "(16-byte rows)")
-    if -(-M // FLS_TILE_M) > FLS_MAX_TILES:
-        raise ValueError(f"fused_linear_stats kernel: M {M} > {FLS_MAX_TILES * FLS_TILE_M} rows")
     named = [(x, "x"), (w, "w")]
     if (a is None) != (b is None):
         raise ValueError("fused_linear_stats kernel: the prologue needs both a and b")
@@ -108,7 +106,7 @@ def check_kernel_args(x, w, a, b) -> Tuple[int, int, int]:
 # undeclared argument passes as a 32-bit int and cuts the pointer).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FLS_ENTRY = "fused_linear_stats"
-FLS_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]  # x w a b y part; M K N relu bf16; stream
+FLS_ARGTYPES = [_P] * 7 + [_I] * 5 + [_P]  # x w a b y part stats; M K N relu bf16; stream
 
 
 def bind_fls_entry(lib: ctypes.CDLL):
@@ -138,17 +136,17 @@ def fused_linear_stats_kernel(x, w, a=None, b=None):
     if M == 0:
         zeros = torch.zeros(N, dtype=torch.float32, device=x.device)
         return y, zeros, zeros.clone()
-    part = torch.empty(2, -(-M // FLS_TILE_M), N, dtype=torch.float32, device=x.device)
+    part = torch.empty(2, 2 * -(-M // FLS_TILE_M), N, dtype=torch.float32, device=x.device)
+    stats = torch.empty(2, N, dtype=torch.float32, device=x.device)
     relu = a is not None
     with torch.cuda.device(x.device):
         err = _fls_fn()(x.data_ptr(), w.data_ptr(), a.data_ptr() if relu else None,
                         b.data_ptr() if relu else None, y.data_ptr(), part.data_ptr(),
-                        M, K, N, int(relu), int(x.dtype == torch.bfloat16),
+                        stats.data_ptr(), M, K, N, int(relu), int(x.dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_linear_stats kernel launch failed: cudaError_t {err}")
     fused_linear_stats_launches += 1
-    stats = part.sum(dim=1)  # the per-tile partial rows
     return y, stats[0], stats[1]
 
 

@@ -123,17 +123,17 @@ def variant_source(text: str, edits) -> str:
     return text
 
 
-def build_variants(names, variants=VARIANTS, prefix=""):
-    """name -> loaded library of each named copy of grouped_matmul.cu, its
-    edits from ``variants``, built under build/torch_kernels/variants/ as
-    ``<prefix><name>``."""
+def build_variants(names, variants=VARIANTS, prefix="", source="grouped_matmul.cu"):
+    """name -> loaded library of each named copy of ``source`` (in
+    ops/csrc/), its edits from ``variants``, built under
+    build/torch_kernels/variants/ as ``<prefix><name>``."""
     from tf_operator_tpu_torch.ops import _build
 
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     for header in _build.CSRC.glob("*.cuh"):
         (out / header.name).write_text(header.read_text())
-    src = (_build.CSRC / "grouped_matmul.cu").read_text()
+    src = (_build.CSRC / source).read_text()
     jobs = {}
     for name in names:
         (out / f"{prefix}{name}.cu").write_text(variant_source(src, variants[name]))
