@@ -65,6 +65,29 @@ Training path:
     instructions (which must be there), registers and spills (which must
     be none) and nvcc's wgmma serialisation advisories (which must be
     none).
+12a. ``ckpt_roundtrip``: the trained state of phase 9 (params and AdamW
+    moments, 9.5 GB) saved through the async npy pipeline at full size
+    with a training step queued right behind the save, then restored into
+    a fresh template: every leaf bitwise equal to the state as saved. The
+    caller's stall, the staging's device time, the drain and restore
+    times, the bytes written and the peak memory with the staging copy
+    beside a step. Then a writer process killed where the drain reaches
+    its manifest: no step becomes discoverable, and the next manager
+    sweeps the orphan.
+12b. ``operator_resume``: the north-star job
+    (``examples/gqa_2048_northstar_h100.json``: steps 10, a checkpoint
+    every 4 kept one deep, a retryable failure at step 6) launched with the
+    operator's ``TPUJOB_*`` environment through the real harness
+    (``python -m tf_operator_tpu.rendezvous.harness``, a subprocess): the
+    first incarnation exits 138, the relaunch (the controller's gang
+    restart) logs ``resumed from checkpoint at step 4``, runs the flash
+    kernels exactly 2·L / L / L times for each of its 7 steps, ends at step
+    11 and exits 0; its ``lm done`` line gives step time, tokens/s and MFU,
+    and its final loss is held to an uninterrupted run of the same spec.
+12c. ``jax_trajectory``: gqa-2048 at full width and depth in f32 (TF32
+    off) through K1-K3, from the numpy-seeded init and batch of
+    ``artifacts/torch_vs_jax_gqa2048.json`` (b 1, t 2048): 1 + 3 AdamW
+    steps, each loss within the artifact's limit of the JAX package's.
 
 MoE training path:
 
@@ -159,10 +182,14 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -175,6 +202,7 @@ from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.resnet import ResNetConfig, init_resnet
 from tf_operator_tpu_torch.models.transformer import (
     init_transformer,
+    init_transformer_numpy,
     lm_loss,
     lm_loss_and_metrics,
     preset_from_workload,
@@ -191,6 +219,8 @@ from tf_operator_tpu_torch.serve.engine import (
     prefill_chunk,
 )
 from tf_operator_tpu_torch.serve.kvcache import PagePool, SequencePages, pages_needed
+from tf_operator_tpu_torch.train import checkpoint as ckpt_mod
+from tf_operator_tpu_torch.train import trajectory
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
 from tf_operator_tpu_torch.workloads.lm import fixed_tokens, router_metrics, run_lm
 from tf_operator_tpu_torch.workloads.resnet import resnet_loss, run_resnet
@@ -207,6 +237,28 @@ TRAIN_WL = {
     "preset": "gqa-2048", "steps": 8, "batch_size": 6, "seq_len": 2048,
     "attn": "flash", "remat": "save_mid", "lr": 3e-4, "data": "fixed",
 }
+REPO = Path(__file__).resolve().parent
+# The checkpoint phases write under the checkout, in a directory that
+# .gitignore lists, and each removes what it wrote.
+CKPT_ROOT = REPO / "build" / "ckpt_smoke"
+# operator_resume: the north-star job's H100 spec, its workload cut to 10
+# steps with a checkpoint every 4 kept one deep, and a retryable failure at
+# step 6: the relaunch resumes from step 4 and ends at step 11 (10 steps
+# and the warmup).
+NORTHSTAR_SPEC = REPO / "examples" / "gqa_2048_northstar_h100.json"
+RESUME_OVERRIDES = {"steps": 10, "checkpoint_every": 4, "checkpoint_keep": 1,
+                    "fail_at_step": 6}
+RESUME_FROM, RESUME_LAST = 4, 11
+# The resumed run's final loss against an uninterrupted run of the same
+# spec. The relaunch restores step 4's state bit for bit (ckpt_roundtrip
+# checks that at full size) and trains the same fixed batch through the
+# same kernels, so where every kernel of a step is deterministic the two
+# final losses are equal. What can part them is a sum whose order depends
+# on scheduling (a library kernel's atomics), a few bf16 ulps of a step's
+# grads: less than two sum orders through every op of a first bf16 step,
+# which the kernels-vs-plain check holds to PARITY_BF16_FIRST_STEP_ATOL
+# (2e-3). That is the limit; the line says whether the losses were equal.
+OPERATOR_RESUME_LOSS_ATOL = 2e-3
 # The MoE training job (examples/moe_small_h100.json) at full width and
 # depth, 1 warmup + 8 timed steps, random weights (seed 0).
 MOE_WL = {
@@ -1129,7 +1181,6 @@ def plant_jobs(names, plants):
     path): copies of the sources, each with one planted fault, under
     build/torch_kernels/plant/, named by a hash of the faulty source."""
     import hashlib
-    import shutil
 
     out = _build.BUILD_DIR / "plant"
     out.mkdir(parents=True, exist_ok=True)
@@ -1575,6 +1626,313 @@ def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
             "tflops": ops / ms["kernel"] / 1e9, "max_abs_err": float(err.max()),
             "ms_source": source, "runs": runs}
 
+# ---------------------------------------------------------------------------
+# checkpoints, the operator-launched job, the JAX trajectory
+# ---------------------------------------------------------------------------
+
+
+def state_nbytes(state) -> int:
+    leaves = ckpt_mod._flatten(ckpt_mod._to_tree(state))
+    return sum(x.numel() * x.element_size() for _, x in leaves if isinstance(x, torch.Tensor))
+
+
+def ckpt_dir_with_room(name: str, need: int) -> Path:
+    """A fresh directory under CKPT_ROOT; raises when its disk has less
+    than ``need`` bytes free (the phase never runs short, nor skips)."""
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    check(free >= need, f"{name}: {free / 1e9:.1f} GB free under {CKPT_ROOT}, "
+                        f"the phase needs {need / 1e9:.1f} GB")
+    return Path(tempfile.mkdtemp(prefix=f"{name}_", dir=CKPT_ROOT))
+
+
+def orphans(d: Path) -> list:
+    return sorted(n for n in os.listdir(d) if n.startswith(".tmp_step_"))
+
+
+def timed_step(trainer, state, tokens):
+    """One training step on the host clock, to its loss on the host."""
+    t = time.perf_counter()
+    state, m = trainer.step(state, tokens)
+    float(m["loss"])
+    return state, time.perf_counter() - t
+
+
+def save_beside_steps(mgr, step, state, trainer, tokens):
+    """An async save at ``step`` with training going on, in place, right
+    behind it: the caller's stall, the staging copy's device time, each
+    step's host time and cudaMalloc count while the drain runs (at most 8
+    steps), and the time from the save's start to the commit."""
+    def mallocs():
+        return torch.cuda.memory_stats().get("num_device_alloc", 0)
+
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    check(mgr.save(step, state), f"ckpt_roundtrip: save of step {step} refused")
+    e1.record()
+    stall_ms = mgr.last_save_stall_s * 1e3
+    beside, allocs = [], []
+    while len(beside) < 8 and (not beside or mgr._drain.is_alive()):
+        n = mallocs()
+        state, secs = timed_step(trainer, state, tokens)
+        beside.append(secs * 1e3)
+        allocs.append(mallocs() - n)
+    mgr.wait_until_finished()
+    return state, {"step": step, "save_stall_ms": stall_ms,
+                   "stage_device_ms": e0.elapsed_time(e1),
+                   "drain_s": time.perf_counter() - t0, "step_ms_beside_drain": beside,
+                   "cuda_mallocs_beside_drain": allocs}
+
+
+def phase_ckpt_roundtrip(run, smi):
+    """The trained gqa-2048 state from ``train``, at full size: an async
+    save with training steps queued right behind it while it drains
+    (their in-place updates must not reach the checkpoint), three steps
+    after it, and a restore into a fresh template with every leaf bitwise
+    equal to the state as saved. Then a second save beside steps (the
+    first one's staging blocks now cached), and a writer process killed at
+    the drain's ``manifest`` phase: no step becomes discoverable, and the
+    next manager sweeps its orphan."""
+    # train_breakdown steps run.state's tensors and optimizer count in
+    # place after run_lm returned it: its step is the count
+    trainer = run.trainer
+    state = replace(run.state, step=run.state.opt_state["count"])
+    step = state.step
+    nbytes = state_nbytes(state)
+    d = ckpt_dir_with_room("ckpt_roundtrip", 2 * nbytes + (1 << 30))
+    try:
+        leaves = ckpt_mod._flatten(ckpt_mod._to_tree(state))
+        paths = [p for p, _ in leaves]
+        snap = [x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor) else np.array(x)
+                for _, x in leaves]
+        mgr = ckpt_mod.CheckpointManager(d, keep=1)
+        torch.cuda.reset_peak_memory_stats()
+        state, first = save_beside_steps(mgr, step, state, trainer, run.tokens)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        alone = []
+        for _ in range(3):
+            state, secs = timed_step(trainer, state, run.tokens)
+            alone.append(secs * 1e3)
+        written = sum(f.stat().st_size for f in (d / f"step_{step}").iterdir())
+        moved = not torch.equal(state.params["embed"].detach().cpu(),
+                                snap[paths.index("['params']['embed']")])
+        check(moved, "ckpt_roundtrip: the steps after the save changed nothing")
+        template = trainer.state_template()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back = ckpt_mod.CheckpointManager(d).restore(template, device=run.device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(back.step == step and back.opt_state["count"] == step,
+              f"ckpt_roundtrip: restored step {back.step}, count {back.opt_state['count']}")
+        got = [x for _, x in ckpt_mod._flatten(ckpt_mod._to_tree(back))]
+        differ = [p for p, s, g in zip(paths, snap, got)
+                  if not (torch.equal(g.cpu(), s) if isinstance(g, torch.Tensor)
+                          else int(g) == int(s))]
+        check(not differ, f"ckpt_roundtrip: leaves differ after the restore: {differ[:6]}")
+        del back, got, snap
+        # the first drain's staging blocks stay cached for the second save
+        state, second = save_beside_steps(mgr, state.step, state, trainer, run.tokens)
+        last = second["step"]
+        torch.cuda.empty_cache()  # room for the crash writer's process
+        # a writer killed between its last leaf and its manifest
+        crash = subprocess.run([sys.executable, "-c", CRASH_WRITER, str(d), str(last)],
+                               cwd=REPO, capture_output=True, text=True, timeout=600)
+        check(crash.returncode == 0, f"ckpt_roundtrip: crash writer exit {crash.returncode}: "
+                                     f"{crash.stderr[-2000:]}")
+        left = orphans(d)
+        check(len(left) == 1 and ckpt_mod.latest_checkpoint_step(str(d)) == last,
+              f"ckpt_roundtrip: after the crash {left}, latest "
+              f"{ckpt_mod.latest_checkpoint_step(str(d))}")
+        orphan_gb = sum(f.stat().st_size for f in (d / left[0]).iterdir()) / 1e9
+        ckpt_mod.CheckpointManager(d)
+        check(orphans(d) == [], f"ckpt_roundtrip: orphan not swept: {orphans(d)}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "ckpt_roundtrip", "step": step, "leaves": len(leaves),
+          "state_gb": nbytes / 1e9, "written_gb": written / 1e9,
+          # drain_s: from the save's start to the commit, steps running meanwhile
+          "first_save": first, "step_ms_after_drain": alone,
+          "drain_gb_per_s": written / 1e9 / first["drain_s"], "restore_s": restore_s,
+          "restore_gb_per_s": written / 1e9 / restore_s,
+          "peak_mem_gb_staging_beside_a_step": peak_gb, "bitwise_equal": True,
+          "second_save": second,
+          "crash_at_manifest": {"orphan_gb": orphan_gb, "discoverable": False,
+                                "swept": True}, "card": smi})
+
+
+# Loads a committed step's leaves onto the card, saves them at the next
+# step through the async pipeline and dies (no cleanup) when the drain
+# reaches its manifest: the orphan a crashed writer leaves.
+CRASH_WRITER = """
+import json, os, sys
+import torch
+from tf_operator_tpu_torch.train.checkpoint import CheckpointManager, _load_leaf
+d, step = sys.argv[1], int(sys.argv[2])
+src = os.path.join(d, f"step_{step}")
+with open(os.path.join(src, "manifest.json")) as f:
+    records = json.load(f)["leaves"]
+tree = {r["path"]: torch.from_numpy(_load_leaf(os.path.join(src, f"leaf_{r['index']}.npy"),
+                                               r)).cuda() for r in records}
+mgr = CheckpointManager(d, keep=1)
+mgr._fault_hook = lambda phase, s: os._exit(0) if phase == "manifest" else None
+mgr.save(step + 1, tree, wait=True)
+os._exit(1)
+"""
+
+HARNESS_DONE = re.compile(r"lm done: preset=(\S+) loss=(\S+) step=([\d.]+)ms tok/s=(\d+) "
+                          r"mfu_attn=(\S+) mfu_6nd=(\S+)")
+HARNESS_KERNELS = re.compile(r"lm kernels: flash_fwd_launches=(\d+) flash_bwd_dq_launches=(\d+) "
+                             r"flash_bwd_dkv_launches=(\d+) final_loss=(\S+)")
+
+
+def harness_env(spec: dict, wl: dict, ckpt_dir: Path) -> dict:
+    """The TPUJOB_* environment the operator's local backend gives the
+    job's one worker (identity, gang, workload, and the warm-restart
+    contract: the directory and the latest complete step in it)."""
+    tmpl = spec["spec"]["replica_specs"]["Worker"]["template"]
+    env = dict(os.environ)
+    env.update({
+        "PYTHONPATH": str(REPO) + os.pathsep + env.get("PYTHONPATH", ""),
+        "TPUJOB_ENTRYPOINT": tmpl["entrypoint"],
+        "TPUJOB_NAME": spec["metadata"]["name"],
+        "TPUJOB_NAMESPACE": spec["metadata"].get("namespace", "default"),
+        "TPUJOB_REPLICA_TYPE": "Worker", "TPUJOB_REPLICA_INDEX": "0", "TPUJOB_PORT": "0",
+        "TPUJOB_CHIPS": str(tmpl.get("chips_per_process", 1)),
+        "TPUJOB_NUM_PROCESSES": "1", "TPUJOB_PROCESS_ID": "0",
+        "TPUJOB_MESH_AXES": json.dumps(spec["spec"]["topology"].get("mesh_axes", {})),
+        "TPUJOB_WORKLOAD": json.dumps(wl),
+        "TPUJOB_CHECKPOINT_DIR": str(ckpt_dir),
+        "TPUJOB_RESUME_STEP": str(ckpt_mod.latest_checkpoint_step(str(ckpt_dir))),
+    })
+    return env
+
+
+def run_harness(spec, wl, ckpt_dir, log_path) -> tuple:
+    """One incarnation of the job's worker: the real harness as a
+    subprocess, its log appended to ``log_path``. (exit code, seconds)."""
+    t0 = time.perf_counter()
+    with open(log_path, "a") as log:
+        proc = subprocess.run([sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"],
+                              env=harness_env(spec, wl, ckpt_dir), cwd=REPO, stdout=log,
+                              stderr=subprocess.STDOUT, timeout=900)
+    return proc.returncode, time.perf_counter() - t0
+
+
+def harness_result(text: str, phase: str) -> dict:
+    """The last ``lm done`` and ``lm kernels`` lines of a worker log."""
+    done, kern = HARNESS_DONE.findall(text), HARNESS_KERNELS.findall(text)
+    check(bool(done) and bool(kern), f"{phase}: no lm done / lm kernels line:\n{text[-3000:]}")
+    _, loss, step_ms, tok_s, mfu_attn, mfu_6nd = done[-1]
+    fwd, dq, dkv, final = kern[-1]
+    def num(x):
+        return None if x == "n/a" else float(x)
+
+    return {"loss_4dp": float(loss), "step_ms": float(step_ms), "tokens_per_s": float(tok_s),
+            "mfu_exact": num(mfu_attn), "mfu_6nd": num(mfu_6nd),
+            "launches": {"flash_fwd_launches": int(fwd), "flash_bwd_dq_launches": int(dq),
+                         "flash_bwd_dkv_launches": int(dkv)}, "final_loss": float(final)}
+
+
+def phase_operator_resume(smi):
+    """The north-star job as the operator runs it, through the real
+    harness: the first incarnation dies retryably (138) at step 6, the
+    relaunch (the controller's gang restart) resumes from step 4's
+    checkpoint and finishes the budget (step 11) through K1-K3; its final
+    loss is held to an uninterrupted run of the same spec."""
+    spec = json.loads(NORTHSTAR_SPEC.read_text())
+    cfg = preset_from_workload(spec["spec"]["workload"])
+    need = 2 * 12 * cfg.n_params() + (1 << 30)  # two step dirs: f32 params and moments
+    d = ckpt_dir_with_room("operator_resume", need)
+    marker = d / "died-once"
+    wl = {**spec["spec"]["workload"], **RESUME_OVERRIDES, "checkpoint_dir": str(d / "ckpt"),
+          "fail_marker": str(marker)}
+    torch.cuda.empty_cache()
+    try:
+        log1 = d / "worker-0.log"
+        log1.write_text("")
+        rc1, s1 = run_harness(spec, wl, d / "ckpt", log1)
+        check(rc1 == 138 and marker.exists(),
+              f"operator_resume: first incarnation exit {rc1}:\n{log1.read_text()[-3000:]}")
+        at_restart = ckpt_mod.latest_checkpoint_step(wl["checkpoint_dir"])
+        check(at_restart == RESUME_FROM, f"operator_resume: latest step {at_restart} at restart")
+        rc2, s2 = run_harness(spec, wl, d / "ckpt", log1)
+        text = log1.read_text()
+        check(rc2 == 0, f"operator_resume: relaunch exit {rc2}:\n{text[-3000:]}")
+        check(f"resumed from checkpoint at step {RESUME_FROM}" in text,
+              f"operator_resume: no resume line:\n{text[-3000:]}")
+        resumed = harness_result(text, "operator_resume")
+        check(resumed["mfu_exact"] is not None and resumed["tokens_per_s"] > 0,
+              f"operator_resume: lm done line without MFU: {resumed}")
+        last = ckpt_mod.latest_checkpoint_step(wl["checkpoint_dir"])
+        check(last == RESUME_LAST, f"operator_resume: latest step {last}")
+        steps_run = RESUME_LAST - RESUME_FROM
+        want = {k: v * cfg.n_layers * steps_run for k, v in DENSE_PER_LAYER.items()}
+        check(resumed["launches"] == want,
+              f"operator_resume: launches {resumed['launches']} != {want}")
+        shutil.rmtree(d / "ckpt")
+        # the same spec, uninterrupted (the marker already exists)
+        log2 = d / "uninterrupted-worker-0.log"
+        log2.write_text("")
+        rc3, s3 = run_harness(spec, {**wl, "checkpoint_dir": str(d / "ckpt2")}, d / "ckpt2",
+                              log2)
+        check(rc3 == 0, f"operator_resume: uninterrupted exit {rc3}:\n{log2.read_text()[-3000:]}")
+        full = harness_result(log2.read_text(), "operator_resume uninterrupted")
+        check(ckpt_mod.latest_checkpoint_step(str(d / "ckpt2")) == RESUME_LAST,
+              "operator_resume: uninterrupted run did not reach the last step")
+        diff = abs(resumed["final_loss"] - full["final_loss"])
+        check(diff <= OPERATOR_RESUME_LOSS_ATOL,
+              f"operator_resume: final loss {resumed['final_loss']} vs uninterrupted "
+              f"{full['final_loss']} (limit {OPERATOR_RESUME_LOSS_ATOL})")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "operator_resume", "spec": str(NORTHSTAR_SPEC.relative_to(REPO)),
+          "overrides": RESUME_OVERRIDES, "exit_codes": [rc1, rc2], "resumed_from": at_restart,
+          "latest_step": last, "resumed": resumed, "uninterrupted": full,
+          "final_loss_diff": diff, "limit": OPERATOR_RESUME_LOSS_ATOL,
+          "bitwise_equal_final_loss": diff == 0.0,
+          "incarnation_s": [s1, s2], "uninterrupted_s": s3, "card": smi})
+
+
+def phase_jax_trajectory(dev, smi):
+    """gqa-2048 at full width and depth in f32 (TF32 off) through K1-K3,
+    from the numpy-seeded init and batch that the artifact records: 1 + 3
+    AdamW steps, each loss within the artifact's limit of the JAX
+    package's (computed on a CPU, tests/test_torch_trajectory.py)."""
+    art = json.loads((REPO / trajectory.ARTIFACT).read_text())
+    cfg = trajectory.trajectory_config(art["preset"])
+    params = init_transformer_numpy(cfg, art["init_seed"])
+    head = params["embed"].reshape(-1)[:8].tolist()
+    check(head == art["init_stream_head"], f"jax_trajectory: init stream {head} differs")
+    sums = {"embed": float(np.sum(params["embed"], dtype=np.float64)),
+            **{f"layers.{k}": float(np.sum(v, dtype=np.float64))
+               for k, v in params["layers"].items()}}
+    bad = [k for k, v in art["init_sums"].items() if not math.isclose(sums[k], v, rel_tol=1e-9,
+                                                                         abs_tol=1e-6)]
+    check(not bad, f"jax_trajectory: init sums differ: {bad}")
+    tokens = trajectory.trajectory_tokens(cfg.vocab, art["batch_size"], art["seq_len"],
+                                          art["batch_seed"])
+    check(tokens[0, :16].tolist() == art["first_batch_head"]
+          and int(tokens.sum(dtype=np.int64)) == art["first_batch_sum"],
+          "jax_trajectory: the batch differs from the artifact's")
+    torch.cuda.empty_cache()
+    reset_counts()
+    losses = trajectory.port_trajectory(cfg, params, tokens, art["steps"], device=dev)
+    counts = read_counts()
+    want = {name: DENSE_PER_LAYER.get(name, 0) * cfg.n_layers * art["steps"]
+            for name in COUNTERS}
+    check(counts == want, f"jax_trajectory launches {counts} != {want}")
+    diffs = [abs(a - b) for a, b in zip(losses, art["jax_losses"])]
+    check(max(diffs) <= art["card_limit"],
+          f"jax_trajectory: losses {losses} vs JAX {art['jax_losses']} "
+          f"(limit {art['card_limit']})")
+    emit({"phase": "jax_trajectory", "preset": art["preset"], "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": art["batch_size"],
+          "seq": art["seq_len"], "losses": losses, "jax_losses": art["jax_losses"],
+          "abs_diff": diffs, "limit": art["card_limit"], "launches": counts, "card": smi})
+
 
 # ---------------------------------------------------------------------------
 # MoE training: the grouped-matmul kernels against their plain versions
@@ -1801,8 +2159,6 @@ def sass_counts(lib, marks=("HGMMA", "UTMALDG", "UBLKCP")):
     the built library ``lib``: HGMMA is wgmma, UTMALDG a TMA tensor load,
     UBLKCP a bulk copy, HMMA an mma.sync. cuobjdump ships with the CUDA
     toolkit; without it this raises."""
-    import shutil
-
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(Path(tool).exists(), "cuobjdump not found: the SASS counts need the CUDA toolkit")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
@@ -2524,10 +2880,14 @@ def main() -> int:
     run_phase("flash_plant", phase_flash_plant, dev)
     run, train_counts = run_phase("train", phase_train, smi)
     run_phase("train_breakdown", phase_train_breakdown, run, smi)
-    del run
     torch.cuda.empty_cache()
     run_phase("train_parity", phase_train_parity, dev)
     ft = run_phase("flash_timing", phase_flash_timing, smi)
+    run_phase("ckpt_roundtrip", phase_ckpt_roundtrip, run, smi)
+    del run
+    torch.cuda.empty_cache()
+    run_phase("operator_resume", phase_operator_resume, smi)
+    run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
 
     # MoE training path: moe-small
     gmm_err = run_phase("gmm_check", phase_gmm_check, dev)

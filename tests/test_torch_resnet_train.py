@@ -155,7 +155,8 @@ def test_resnet_workload_main(tmp_path, caplog):
     images, labels = run.batch
     assert images.shape == (4, 32, 32, 3) and images.dtype == torch.float32
     assert labels.dtype == torch.int64 and int(labels.max()) < 10
-    for over, match in (({"checkpoint_dir": str(tmp_path)}, "M6"), ({"data": "stream"}, "M5"),
+    for over, match in (({"checkpoint_dir": str(tmp_path), "checkpoint_backend": "orbax"},
+                         "orbax"), ({"data": "stream"}, "M5"),
                         ({"data": "idx"}, "M5")):
         with pytest.raises(NotImplementedError, match=match):
             wl_mod.run_resnet({**wl, **over}, device="cpu")

@@ -227,7 +227,8 @@ def test_lm_workload_main_and_fault_injection(tmp_path, caplog):
     run = lm.run_lm(wl, device="cpu")
     assert len(run.losses) == 4 and run.timed == 3 and run.tokens_per_step == 32
     assert all(np.isfinite(run.losses)) and run.mfu(run.flops_exact) is None
-    for over, match in (({"checkpoint_dir": str(tmp_path)}, "M6"),
+    for over, match in (({"checkpoint_dir": str(tmp_path), "checkpoint_backend": "orbax"},
+                         "orbax"),
                         ({"data": "stream"}, "M5")):
         with pytest.raises(NotImplementedError, match=match):
             lm.run_lm({**wl, **over}, device="cpu")

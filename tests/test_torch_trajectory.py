@@ -1,0 +1,159 @@
+"""The port's training trajectory against the JAX package's, from one
+numpy-seeded init and batch, in f32.
+
+- ``test_tiny_trajectory_matches_jax``: 1 + 3 AdamW steps of ``tiny`` on
+  the CPU, the port (flash and save_mid, through the kernels' plain
+  versions here) against the JAX Trainer (dense attention): every loss
+  within 1e-5.
+- ``test_generate_gqa2048_artifact`` (``slow``, run by hand): the same at
+  gqa-2048 width and depth, batch 1, t 2048, JAX on the CPU (dense
+  attention: Pallas in interpret mode at t 2048 would take hours), twice:
+  from the init and from the init with every weight nudged by 2^-17 of
+  itself, in a random direction. It writes
+  ``artifacts/torch_vs_jax_gqa2048.json``: the losses, the seeds, the cuts
+  and the limit the card's run is held to (``chip_smoke.py``, phase
+  ``jax_trajectory``). Run it with ``python -m pytest
+  tests/test_torch_trajectory.py -m slow -k generate``; it takes ~20 GB.
+- ``test_artifact_schema_and_seeds``: the artifact has its keys, and its
+  seeds reproduce its first batch and the head of its init's stream.
+"""
+
+import json
+import math
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from tf_operator_tpu.models import transformer as jt  # noqa: E402
+from tf_operator_tpu.parallel import build_mesh  # noqa: E402
+from tf_operator_tpu.train.trainer import Trainer as JaxTrainer  # noqa: E402
+from tf_operator_tpu.train.trainer import TrainerConfig as JaxTrainerConfig  # noqa: E402
+from tf_operator_tpu.train.trainer import TrainState as JaxTrainState  # noqa: E402
+from tf_operator_tpu_torch.models.transformer import init_transformer_numpy  # noqa: E402
+from tf_operator_tpu_torch.train import trajectory as tj  # noqa: E402
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+STEPS = 4  # the initial loss and the loss after each of 3 updates
+INIT_SEED, BATCH_SEED = 0, 1
+# The card's limit: the port runs the same math as JAX in other orders
+# (cuBLAS, ~2^-24 relative per sum) and its f32 flash kernels multiply
+# split bf16 operands, ~2^-17 relative per product (chip_smoke.py's flash
+# notes). The generator measures how far a 2^-17 relative nudge of every
+# init weight, each in a random direction, moves the JAX trajectory; the
+# port rounds at that size in every attention op of every step, not only
+# once in the init, so the limit is LIMIT_X times that spread, and never
+# below train_parity's f32 loss limit (LIMIT_FLOOR).
+NUDGE_REL, LIMIT_X, LIMIT_FLOOR = 2.0 ** -17, 10.0, 1e-4
+
+
+def jax_trajectory(name, params, tokens, steps=STEPS):
+    """The loss before each of ``steps`` updates of the JAX Trainer (f32,
+    dense attention, full remat) from the numpy ``params``."""
+    cfg = jt.preset(name, dtype=jnp.float32, attn_impl="dense", remat=True)
+    mesh = build_mesh({"dp": 1}, devices=jax.devices()[:1])
+    trainer = JaxTrainer(mesh, loss_fn=lambda p, tok, extra: jt.lm_loss(p, tok, cfg),
+                         init_fn=lambda k: jt.init_transformer(k, cfg),
+                         config=JaxTrainerConfig(optimizer="adamw", learning_rate=tj.LR))
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    state = JaxTrainState(p, jax.jit(trainer.tx.init)(p), jnp.zeros((), jnp.int32), None)
+    batch = jnp.asarray(tokens)
+    losses = []
+    for _ in range(steps):
+        state, m = trainer.step(state, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def test_tiny_trajectory_matches_jax():
+    cfg = tj.trajectory_config("tiny")
+    params = init_transformer_numpy(cfg, INIT_SEED)
+    tokens = tj.trajectory_tokens(cfg.vocab, 2, 64, BATCH_SEED)
+    want = jax_trajectory("tiny", params, tokens)
+    got = tj.port_trajectory(cfg, params, tokens, STEPS, device="cpu")
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert got[-1] < got[0]
+
+
+def _stream_head(seed, n=8):
+    """The first ``n`` values of the init's stream: the head of ``embed``."""
+    return (np.random.default_rng(seed).standard_normal(n, dtype=np.float32)
+            * np.float32(0.02)).tolist()
+
+
+@pytest.mark.slow
+def test_generate_gqa2048_artifact():
+    name, batch, seq = "gqa-2048", 1, 2048
+    cfg = tj.trajectory_config(name)
+    t0 = time.time()
+    params = init_transformer_numpy(cfg, INIT_SEED)
+    tokens = tj.trajectory_tokens(cfg.vocab, batch, seq, BATCH_SEED)
+    init_sums = {k: float(np.sum(params[k], dtype=np.float64)) for k in ("embed",)}
+    init_sums.update({f"layers.{k}": float(np.sum(v, dtype=np.float64))
+                      for k, v in params["layers"].items()})
+    assert np.allclose(params["embed"].reshape(-1)[:8], _stream_head(INIT_SEED))
+    losses = jax_trajectory(name, params, tokens)
+    signs = np.random.default_rng(INIT_SEED + 1)
+
+    def nudge(a):
+        s = signs.integers(0, 2, a.shape, dtype=np.int8).astype(np.float32) * 2 - 1
+        return a * (1 + np.float32(NUDGE_REL) * s)
+
+    nudged = jax.tree_util.tree_map(nudge, params)
+    del params
+    nudged_losses = jax_trajectory(name, nudged, tokens)
+    spread = max(abs(a - b) for a, b in zip(losses, nudged_losses))
+    artifact = {
+        "what": "JAX package losses of gqa-2048 trained in f32 on the CPU from a "
+                "numpy-seeded init and batch; the port's card run is held to them",
+        "generated_by": "tests/test_torch_trajectory.py::test_generate_gqa2048_artifact",
+        "preset": name, "n_params": cfg.n_params(), "dtype": "float32",
+        "jax": {"attn_impl": "dense", "remat": "full"},
+        "port": {"attn_impl": "flash", "remat": "save_mid", "tf32": False},
+        "optimizer": "chain(clip_by_global_norm(1.0), adamw(lr, b1 0.9, b2 0.95, wd 0))",
+        "lr": tj.LR, "batch_size": batch, "seq_len": seq, "steps": STEPS,
+        "cuts": {"batch_size": "1 of the job's 6", "steps": "1 + 3 updates of the job's 1000",
+                 "data": "one fixed batch"},
+        "init_seed": INIT_SEED, "batch_seed": BATCH_SEED,
+        "init": "tf_operator_tpu_torch.models.transformer.init_transformer_numpy(cfg, "
+                "init_seed): np.random.default_rng(init_seed) f32 normals",
+        "batch": "np.random.RandomState(batch_seed).randint(0, vocab, (batch_size, seq_len))",
+        "init_stream_head": _stream_head(INIT_SEED), "init_sums": init_sums,
+        "first_batch_head": tokens[0, :16].tolist(),
+        "first_batch_sum": int(tokens.sum(dtype=np.int64)),
+        "jax_losses": losses, "jax_losses_init_nudged": nudged_losses,
+        "nudge": f"every init weight times 1 + {NUDGE_REL} s, s = +-1 from "
+                 f"np.random.default_rng({INIT_SEED + 1})",
+        "nudge_spread": spread,
+        "limit_rule": f"max({LIMIT_FLOOR}, {LIMIT_X} x nudge_spread)",
+        "card_limit": max(LIMIT_FLOOR, LIMIT_X * spread),
+        "generate_s": time.time() - t0,
+    }
+    (ROOT / tj.ARTIFACT).write_text(json.dumps(artifact, indent=1) + "\n")
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+def test_artifact_schema_and_seeds():
+    art = json.loads((ROOT / tj.ARTIFACT).read_text())
+    for key in ("preset", "batch_size", "seq_len", "steps", "lr", "init_seed", "batch_seed",
+                "init_stream_head", "init_sums", "first_batch_head", "first_batch_sum",
+                "jax_losses", "card_limit", "cuts"):
+        assert key in art, key
+    cfg = tj.trajectory_config(art["preset"])
+    assert art["n_params"] == cfg.n_params() and art["lr"] == tj.LR
+    assert len(art["jax_losses"]) == art["steps"] == STEPS
+    assert all(math.isfinite(x) for x in art["jax_losses"])
+    assert art["card_limit"] >= LIMIT_FLOOR
+    tokens = tj.trajectory_tokens(cfg.vocab, art["batch_size"], art["seq_len"],
+                                  art["batch_seed"])
+    assert tokens[0, :16].tolist() == art["first_batch_head"]
+    assert int(tokens.sum(dtype=np.int64)) == art["first_batch_sum"]
+    assert _stream_head(art["init_seed"]) == art["init_stream_head"]
+    head = init_transformer_numpy(tj.trajectory_config("tiny"), art["init_seed"])["embed"]
+    assert head.reshape(-1)[:8].tolist() == art["init_stream_head"]

@@ -25,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -224,6 +225,41 @@ def init_transformer(
         "final_norm": torch.ones(d, device=dev),
         "layers": layers,
     }
+
+
+def init_transformer_numpy(cfg: TransformerConfig, seed: int) -> Dict[str, Any]:
+    """f32 numpy params with ``init_transformer``'s tree and distributions,
+    drawn from ``np.random.default_rng(seed)`` (f32 normals, leaf by leaf
+    in the tree's order): the same arrays on any host, for either package
+    (``compat.params_from_numpy`` hands them to this one)."""
+    rng = np.random.default_rng(int(seed))
+    d, f = cfg.d_model, cfg.d_ff
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    L = cfg.n_layers
+
+    def dense(fan_in, *shape):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        x *= np.float32(fan_in ** -0.5)
+        return x
+
+    embed = rng.standard_normal((cfg.vocab, d), dtype=np.float32)
+    embed *= np.float32(0.02)
+    layers = {
+        "attn_norm": np.ones((L, d), np.float32),
+        "wq": dense(d, L, d, nh * hd),
+        "wk": dense(d, L, d, nkv * hd),
+        "wv": dense(d, L, d, nkv * hd),
+        "wo": dense(nh * hd, L, nh * hd, d),
+        "mlp_norm": np.ones((L, d), np.float32),
+    }
+    if cfg.n_experts:
+        E = cfg.n_experts
+        layers.update({"w_router": dense(d, L, d, E), "w_gate": dense(d, L, E, d, f),
+                       "w_up": dense(d, L, E, d, f), "w_down": dense(f, L, E, f, d)})
+    else:
+        layers.update({"w_gate": dense(d, L, d, f), "w_up": dense(d, L, d, f),
+                       "w_down": dense(f, L, f, d)})
+    return {"embed": embed, "final_norm": np.ones(d, np.float32), "layers": layers}
 
 
 # ---------------------------------------------------------------------------

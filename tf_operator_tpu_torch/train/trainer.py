@@ -62,6 +62,30 @@ class TrainerConfig:
     fast_init_rng: bool = False
 
 
+class OptState(dict):
+    """The optimizer state, ``{"count", "mu", "nu"}`` (AdamW) or
+    ``{"count", "trace"}`` (SGD), and ``chain``: the layout of optax's
+    state for the same config, which checkpoints are written in
+    (``train/checkpoint.py``). ``chain`` nests tuples of "empty" (a
+    stateless transform), "adam" (count, mu, nu), "trace" (trace) and
+    "sched" (a schedule's count)."""
+
+    def __init__(self, *args, chain: tuple = (), **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.chain = chain
+
+
+def optax_chain(cfg: "TrainerConfig") -> tuple:
+    """The layout of the JAX _make_tx's state: ``adamw`` is optax's
+    chain(scale_by_adam, add_decayed_weights, scale_by_learning_rate),
+    ``sgd`` chain(trace, scale_by_learning_rate); the learning rate's
+    transform holds a count only under a schedule; a grad clip chains a
+    stateless clip_by_global_norm in front."""
+    sched = "sched" if cfg.lr_schedule == "cosine" or cfg.warmup_steps else "empty"
+    inner = ("adam", "empty", sched) if cfg.optimizer == "adamw" else ("trace", sched)
+    return ("empty", inner) if cfg.grad_clip else inner
+
+
 @dataclass
 class TrainState:
     params: Any
@@ -124,6 +148,7 @@ class Trainer:
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.device = resolve_device(device)
+        self._template: Optional[TrainState] = None
 
     # ---- init -----------------------------------------------------------
 
@@ -131,9 +156,11 @@ class Trainer:
         """Optimizer state as optax keeps it: the update count and AdamW's
         two moments, or SGD's momentum trace."""
         zeros = lambda p: torch.zeros_like(p)  # noqa: E731
+        chain = optax_chain(self.config)
         if self.config.optimizer == "sgd":
-            return {"count": 0, "trace": tree_map(zeros, params)}
-        return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
+            return OptState(chain=chain, count=0, trace=tree_map(zeros, params))
+        return OptState(chain=chain, count=0, mu=tree_map(zeros, params),
+                        nu=tree_map(zeros, params))
 
     def init(self, seed: int = 0) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -145,6 +172,34 @@ class Trainer:
         """A fresh TrainState (zero moments, step 0) around given params."""
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         return TrainState(params, self.init_opt_state(params), 0, extra)
+
+    def state_template(self) -> TrainState:
+        """The TrainState's shapes and dtypes as meta tensors (no storage),
+        the restore target of ``CheckpointManager.restore``. Found by one
+        init on the trainer's device, whose tensors are freed at once."""
+        def meta(t):
+            return torch.empty_like(t, device="meta") if isinstance(t, torch.Tensor) else t
+
+        if self._template is None:
+            with torch.no_grad():
+                state = self.init(0)
+            opt = state.opt_state
+            self._template = TrainState(
+                tree_map(meta, state.params),
+                OptState({k: tree_map(meta, v) for k, v in opt.items()}, chain=opt.chain),
+                0, tree_map(meta, state.extra))
+        return self._template
+
+    def restore_or_init(self, seed: int = 0, manager=None) -> TrainState:
+        """Resume from ``manager``'s latest checkpoint if one exists, else
+        init fresh: the restart-based recovery contract. A restore lands
+        on the trainer's device, params requiring grad as ``init`` sets
+        them."""
+        if manager is not None and manager.latest_step() is not None:
+            state = manager.restore(self.state_template(), device=self.device)
+            state.params = tree_map(lambda p: p.requires_grad_(True), state.params)
+            return state
+        return self.init(seed)
 
     # ---- step -----------------------------------------------------------
 

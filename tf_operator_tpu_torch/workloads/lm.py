@@ -9,21 +9,27 @@ MoE presets it then logs the router health line of the JAX workload
 trained params and the ``data: fixed`` batch. The operator launches
 ``tf_operator_tpu_torch.workloads.lm:main`` like any entrypoint; ``main``
 uses the context only through its attributes (``workload``,
-``num_processes``, ``mark_first_step``).
+``num_processes``, ``mark_first_step``, and the checkpointer's optional
+ones). A job whose checkpoints already cover its budget returns at once;
+a restarted one resumes from its latest checkpoint (``resumed from
+checkpoint at step N`` in the log). On the card ``main`` logs the flash
+kernels' launch counts and the unrounded last loss beside the ``lm done``
+line.
 
 Workload keys: the JAX workload's (preset and TransformerConfig overrides
 including ``attn`` and ``remat``, steps, batch_size, seq_len, lr,
-grad_accum, data, device_loop, profile_dir, fail_at_step, fail_marker)
-plus ``device`` (default ``cuda``). Declared differences from the JAX
-workload:
+grad_accum, data, device_loop, profile_dir, fail_at_step, fail_marker,
+checkpoint_dir, checkpoint_every, checkpoint_keep, checkpoint_async,
+checkpoint_backend) plus ``device`` (default ``cuda``). Declared
+differences from the JAX workload:
 
 - ``data: fixed`` draws its batch with
   ``np.random.RandomState(1).randint(0, vocab, (batch, seq))``, where JAX
   uses ``jax.random.randint(PRNGKey(1), ...)``; init draws from a
   ``torch.Generator`` seeded 0 where JAX uses ``PRNGKey(0)``.
 - Not ported yet, and raising: ``data: stream``/``memmap`` (ROADMAP M5),
-  ``checkpoint_dir`` (M6), more than one process (M8), MoE dispatches
-  other than ``gmm`` (M11).
+  ``checkpoint_backend: orbax`` (``auto`` means npy), more than one
+  process (M8), MoE dispatches other than ``gmm`` (M11).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from tf_operator_tpu_torch.models.transformer import (
     lm_loss_and_metrics,
     preset_from_workload,
 )
+from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
 from tf_operator_tpu_torch.train.metrics import (
     mfu,
@@ -97,10 +104,13 @@ def fixed_tokens(batch: int, seq: int, vocab: int, device) -> torch.Tensor:
 
 
 def run_lm(wl: dict, device: DeviceLike = None,
-           on_step: Optional[Callable[[int], None]] = None) -> LMRun:
+           on_step: Optional[Callable[[int], None]] = None,
+           ckpt: Optional[WorkloadCheckpointer] = None) -> LMRun:
     """Build the model from ``wl``, train ``steps`` timed steps after one
-    warmup step, and return an LMRun. ``device`` overrides the workload's
-    ``device`` key (default ``cuda``)."""
+    warmup step (from the latest checkpoint, when ``checkpoint_dir`` holds
+    one), and return an LMRun. ``device`` overrides the workload's
+    ``device`` key (default ``cuda``); ``ckpt`` is the checkpointer to use
+    (by default one built from ``wl``, without a job context)."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     steps = max(2, int(wl.get("steps", 10)))
     batch = int(wl.get("batch_size", 8))
@@ -109,7 +119,7 @@ def run_lm(wl: dict, device: DeviceLike = None,
     data_mode = wl.get("data", "fixed")
     if data_mode != "fixed":
         raise NotImplementedError(f"data: {data_mode!r} is not ported yet (ROADMAP M5)")
-    ckpt = WorkloadCheckpointer(wl)
+    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
     trainer = Trainer(
         loss_fn=lambda params, tokens, extra: lm_loss(params, tokens, cfg),
         init_fn=lambda gen: init_transformer(cfg, gen, dev),
@@ -170,7 +180,12 @@ def main(ctx) -> None:
             log.warning("fault injection: requesting retry at step %d", step)
             raise SystemExit(USER_RETRYABLE_CODE)
 
-    run = run_lm(wl, on_step=on_step)
+    ckpt = WorkloadCheckpointer(wl, ctx=ctx)
+    steps = max(2, int(wl.get("steps", 10)))
+    if ckpt.is_complete(steps):
+        log.info("already complete (budget %d); nothing to do", steps)
+        return
+    run = run_lm(wl, on_step=on_step, ckpt=ckpt)
     preset = wl.get("preset", "tiny")
     router = router_metrics(run)
     if router is not None:
@@ -191,3 +206,9 @@ def main(ctx) -> None:
         "n/a" if m_6nd is None else f"{m_6nd:.3f}",
         torch.cuda.get_device_name(run.device) if run.device.type == "cuda" else "cpu",
     )
+    if run.device.type == "cuda":
+        # the kernels this process launched (warmup included), proof that
+        # the job ran through K1-K3, and the last loss unrounded
+        log.info("lm kernels: flash_fwd_launches=%d flash_bwd_dq_launches=%d "
+                 "flash_bwd_dkv_launches=%d final_loss=%.9g", fa.flash_fwd_launches,
+                 fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches, run.loss)

@@ -6,23 +6,30 @@ synthetic batch and logs the JAX workload's line: loss, step ms,
 images/s and MFU (``resnet_train_flops``, 3x the forward). The operator
 launches ``tf_operator_tpu_torch.workloads.resnet:main`` like any
 entrypoint; ``main`` uses the context only through its attributes
-(``workload``, ``num_processes``).
+(``workload``, ``num_processes``, and the checkpointer's optional ones).
+Checkpoints hold the BN running statistics as ``extra``; a job whose
+checkpoints already cover its budget returns at once, a restarted one
+resumes from its latest checkpoint.
 
 Workload keys: the JAX workload's (steps, batch_size, image_size,
-num_classes, lr, variant, data, device_loop, profile_dir) plus ``device``
-(default ``cuda``). As in the JAX package, ``ResNetConfig.fused_1x1`` is
-not a workload key: ``run_resnet(wl, cfg=...)`` takes a config that
-overrides the one built from ``wl``, as ``bench.py`` sets it. Declared
-differences from the JAX workload:
+num_classes, lr, variant, data, device_loop, profile_dir, checkpoint_dir,
+checkpoint_every, checkpoint_keep, checkpoint_async, checkpoint_backend)
+plus ``device`` (default ``cuda``). As in the JAX package,
+``ResNetConfig.fused_1x1`` is not a workload key: ``run_resnet(wl,
+cfg=...)`` takes a config that overrides the one built from ``wl``, as
+``bench.py`` sets it. Declared differences from the JAX workload:
 
 - ``data: fixed`` draws its images with
   ``np.random.RandomState(1).standard_normal`` and its labels with
   ``np.random.RandomState(2).randint``, where JAX uses ``PRNGKey(1)`` and
   ``PRNGKey(2)``; init draws from a ``torch.Generator`` seeded 0.
+- ``main`` hands its job context to the checkpointer (depot push, peer
+  prefetch, save and restore spans), as the LM workload does; the JAX
+  ResNet workload hands it none.
 - Not ported yet, and raising: ``data: stream`` and ``data: idx`` (ROADMAP
-  M5), ``checkpoint_dir`` (M6), more than one process (M8). The eval
-  scorer (``make_test_accuracy``) comes with the ``idx`` path and the eval
-  role (M9).
+  M5), ``checkpoint_backend: orbax`` (``auto`` means npy), more than one
+  process (M8). The eval scorer (``make_test_accuracy``) comes with the
+  ``idx`` path and the eval role (M9).
 """
 
 from __future__ import annotations
@@ -101,10 +108,13 @@ class ResNetRun:
 
 
 def run_resnet(wl: dict, device: DeviceLike = None,
-               cfg: Optional[ResNetConfig] = None) -> ResNetRun:
+               cfg: Optional[ResNetConfig] = None,
+               ckpt: Optional[WorkloadCheckpointer] = None) -> ResNetRun:
     """Build the model from ``wl`` (or take ``cfg``), train ``steps`` timed
-    steps after one warmup step, and return a ResNetRun. ``device``
-    overrides the workload's ``device`` key (default ``cuda``)."""
+    steps after one warmup step (from the latest checkpoint, when
+    ``checkpoint_dir`` holds one), and return a ResNetRun. ``device``
+    overrides the workload's ``device`` key (default ``cuda``); ``ckpt``
+    is the checkpointer to use (by default one built from ``wl``)."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     steps = max(2, int(wl.get("steps", 20)))
     batch = int(wl.get("batch_size", 128))
@@ -114,7 +124,7 @@ def run_resnet(wl: dict, device: DeviceLike = None,
     data_mode = wl.get("data", "fixed")
     if data_mode in ("stream", "idx"):
         raise NotImplementedError(f"data: {data_mode!r} is not ported yet (ROADMAP M5)")
-    ckpt = WorkloadCheckpointer(wl)
+    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
     trainer = Trainer(
         loss_fn=lambda params, data, state: resnet_loss(params, data, state, cfg),
         init_fn=lambda gen: init_resnet(cfg, gen, dev),
@@ -138,7 +148,12 @@ def main(ctx) -> None:
     wl = ctx.workload
     if int(getattr(ctx, "num_processes", 1) or 1) > 1:
         raise NotImplementedError("multi-process training is not ported yet (ROADMAP M8)")
-    run = run_resnet(wl)
+    ckpt = WorkloadCheckpointer(wl, ctx=ctx)
+    steps = max(2, int(wl.get("steps", 20)))
+    if ckpt.is_complete(steps):
+        log.info("already complete (budget %d); nothing to do", steps)
+        return
+    run = run_resnet(wl, ckpt=ckpt)
     if run.step_s is None:
         log.info("resnet done: loss=%.4f (no timed steps remained)", run.loss)
         return
