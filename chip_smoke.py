@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (dense, MoE and
-ResNet) on one NVIDIA GPU and check them.
+ResNet), its input pipeline and its Evaluator on one NVIDIA GPU and check
+them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
 
@@ -88,6 +89,26 @@ Training path:
     off) through K1-K3, from the numpy-seeded init and batch of
     ``artifacts/torch_vs_jax_gqa2048.json`` (b 1, t 2048): 1 + 3 AdamW
     steps, each loss within the artifact's limit of the JAX package's.
+12d. ``data_memmap``: gqa-2048 at full width and depth through ``run_lm``
+    with ``data: memmap`` on a corpus of 2^27 uint16 tokens (256 MB,
+    written by ``write_token_corpus`` from seed 0, its last 64 windows held
+    out), 1 + 8 steps: the first 3 batches that arrive on the card equal
+    ``TokenMemmapDataset``'s own windows byte for byte (sha256), the flash
+    kernels run 2·L / L / L times a step, the loss stays finite, and the
+    host-to-device copies ran on the loader's stream, not the step's; step
+    time, tokens/s, MFU, and device busy and idle share over 2 steps
+    profiled on loader batches. Then ``data_stream``: ``data: stream``
+    for 1 + 2 steps with the same launch check.
+12e. ``eval_live``: the north-star spec on that corpus (10 steps, a
+    checkpoint every 4 kept 3 deep), the Evaluator
+    (``tf_operator_tpu_torch.workloads.eval:main``) launched through the
+    real harness as the operator's Evaluator replica before the trainer
+    and before any checkpoint exists, then the trainer through the
+    harness: both exit 0, the report holds every saved step (4, 8, 11)
+    oldest first with finite CEs, the evaluator launched K1 n_layers x 4
+    times a checkpoint and no K2 or K3, and the last step's CE is held to
+    a recompute in this process through K1's plain version on the same
+    holdout batches within 1e-4 (EVAL_CE_ATOL); restore and score seconds a checkpoint.
 
 MoE training path:
 
@@ -159,6 +180,16 @@ ResNet training path:
     elementwise work and the SGD update as families of their own; then the
     same for the unfused run (its device time, which the host clock of a
     shared host does not give).
+22a. ``resnet_real``: the real-image path (``train_real``) at ResNet-50
+    width and depth with the workload of
+    ``examples/resnet_real_idx_h100.json`` (224^2, b 256, crop padding 16,
+    no flip, 10 classes, lr 0.1, augmented) on a seeded idx fixture of
+    2,048 train and 512 test 28x28 images upsampled x8, 1 epoch (8 steps),
+    ``fused_1x1`` through cfg: K8 exactly 36 times a step, the native
+    augmenter served every batch the loader staged, finite losses, the
+    test accuracy in [0, 1] and identical when rescored with eval_b 64 and
+    100; images/s, idle share over 2 steps profiled on loader batches, and
+    the stager's host ms a batch beside the step's.
 23. ``resnet_parity``: ResNet-50 widths at one block a stage, 64^2, b 8:
     f32 loss, BN state and grads on the card against the CPU with
     ``fused_1x1`` on and off, and 3 bf16 steps with K8 against 3 with its
@@ -181,6 +212,7 @@ then exits non-zero and prints no result. Without a CUDA device it exits
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -259,6 +291,36 @@ RESUME_FROM, RESUME_LAST = 4, 11
 # which the kernels-vs-plain check holds to PARITY_BF16_FIRST_STEP_ATOL
 # (2e-3). That is the limit; the line says whether the losses were equal.
 OPERATOR_RESUME_LOSS_ATOL = 2e-3
+# data_memmap: the corpus (2^27 uint16 tokens, 256 MB, from DATA_SEED) with
+# its last HOLDOUT_WINDOWS windows held out; the first DATA_CHECKED batches
+# on the card are held to the dataset's own.
+CORPUS_TOKENS = 1 << 27
+HOLDOUT_WINDOWS = 64
+DATA_CHECKED = 3
+DATA_SEED = 0
+# eval_live: the north-star spec on that corpus, 10 steps, a checkpoint
+# every 4 kept 3 deep (steps 4, 8 and the final 11, all kept), and the
+# evaluator's keys (4 batches of 8 x 2048 holdout tokens a checkpoint).
+EVAL_LIVE_OVERRIDES = {"data": "memmap", "steps": 10, "checkpoint_every": 4,
+                       "checkpoint_keep": 3, "train_steps": 10, "eval_batch_size": 8,
+                       "eval_seq_len": 2048, "eval_batches": 4, "poll_interval_s": 0.5,
+                       "max_wait_s": 600}
+EVAL_LIVE_STEPS = (4, 8, 11)
+# The evaluator's CE (bf16, K1) against the same checkpoint and batches
+# through K1's plain version: K1's rounding of P against the plain
+# version's. On an H100 80GB HBM3 (700 W) the two differ by 6.7e-6 on the
+# last checkpoint's CE of ~10.61; the limit is 15x that, and 1/480 of the
+# 4.8e-2 the CE moves between the last two saved checkpoints (steps 8 and
+# 11), so scoring the wrong checkpoint fails it.
+EVAL_CE_ATOL = 1e-4
+# resnet_real: examples/resnet_real_idx_h100.json's workload on a seeded
+# idx fixture at MNIST's geometry, cut to REAL_TRAIN / REAL_TEST images
+# (of 60,000 / 10,000: at 224^2 prepare_classification_images would hold
+# 36 GB of f32 on the host) and one epoch; random labels, so no accuracy
+# target.
+REAL_SPEC = REPO / "examples" / "resnet_real_idx_h100.json"
+REAL_TRAIN, REAL_TEST = 2048, 512
+RESNET_REAL_OVERRIDES = {"epochs": 1, "target_accuracy": 0.0}
 # The MoE training job (examples/moe_small_h100.json) at full width and
 # depth, 1 warmup + 8 timed steps, random weights (seed 0).
 MOE_WL = {
@@ -1320,16 +1382,19 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown", batch=None):
+def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown", batch=None, pull=None):
     """Training steps of a train phase's run (on ``batch``, default the
-    run's tokens) on the host clock and under torch.profiler: device busy
-    time per step, idle share, top kernels, the three flash kernels'
-    share, the grouped-matmul kernels' (forward and dw) and K8's."""
+    run's tokens, or on a batch from ``pull()`` each step: a loader's) on
+    the host clock and under torch.profiler: device busy time per step,
+    idle share, top kernels, the three flash kernels' share, the
+    grouped-matmul kernels' (forward and dw) and K8's."""
     holder = {"state": run.state}
-    batch = run.tokens if batch is None else batch
+    if batch is None and pull is None:
+        batch = run.tokens
 
     def step():
-        holder["state"], m = run.trainer.step(holder["state"], batch)
+        holder["state"], m = run.trainer.step(holder["state"],
+                                              batch if pull is None else pull())
         return m
 
     float(step()["loss"])
@@ -1348,10 +1413,16 @@ def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown", batch=None
     by_category = {}
     for k, _, t in rows:
         by_category[kernel_category(k)] = by_category.get(kernel_category(k), 0.0) + t / iters
-    emit({
+    # host-to-device copies (a loader's, on its own stream) overlap the
+    # step's kernels: the compute streams' idle share leaves them out
+    htod_ms = sum(t for k, _, t in rows if "htod" in k.lower()) / iters
+    out = {
         "phase": phase, "steps": iters, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "htod_copy_ms_per_step": htod_ms,
+        "device_idle_share_without_htod": (1.0 - (busy_ms - htod_ms) / wall_ms
+                                           if busy_ms else None),
         "device_items_per_step": sum(c for _, c, _ in rows) / iters,
         "flash_ms_per_step": flash,
         "flash_share_of_busy": sum(flash.values()) / busy_ms if busy_ms else None,
@@ -1364,7 +1435,9 @@ def phase_train_breakdown(run, smi, iters=2, phase="train_breakdown", batch=None
                          "share_of_busy": t / iters / busy_ms if busy_ms else None}
                         for k, c, t in rows[:12]],
         "card": smi,
-    })
+    }
+    emit(out)
+    return out
 
 
 @contextlib.contextmanager
@@ -1788,18 +1861,20 @@ HARNESS_KERNELS = re.compile(r"lm kernels: flash_fwd_launches=(\d+) flash_bwd_dq
                              r"flash_bwd_dkv_launches=(\d+) final_loss=(\S+)")
 
 
-def harness_env(spec: dict, wl: dict, ckpt_dir: Path) -> dict:
+def harness_env(spec: dict, wl: dict, ckpt_dir: Path, replica_type: str = "Worker",
+                entrypoint: str = "") -> dict:
     """The TPUJOB_* environment the operator's local backend gives the
     job's one worker (identity, gang, workload, and the warm-restart
-    contract: the directory and the latest complete step in it)."""
+    contract: the directory and the latest complete step in it), or its
+    replica of ``replica_type`` running ``entrypoint``."""
     tmpl = spec["spec"]["replica_specs"]["Worker"]["template"]
     env = dict(os.environ)
     env.update({
         "PYTHONPATH": str(REPO) + os.pathsep + env.get("PYTHONPATH", ""),
-        "TPUJOB_ENTRYPOINT": tmpl["entrypoint"],
+        "TPUJOB_ENTRYPOINT": entrypoint or tmpl["entrypoint"],
         "TPUJOB_NAME": spec["metadata"]["name"],
         "TPUJOB_NAMESPACE": spec["metadata"].get("namespace", "default"),
-        "TPUJOB_REPLICA_TYPE": "Worker", "TPUJOB_REPLICA_INDEX": "0", "TPUJOB_PORT": "0",
+        "TPUJOB_REPLICA_TYPE": replica_type, "TPUJOB_REPLICA_INDEX": "0", "TPUJOB_PORT": "0",
         "TPUJOB_CHIPS": str(tmpl.get("chips_per_process", 1)),
         "TPUJOB_NUM_PROCESSES": "1", "TPUJOB_PROCESS_ID": "0",
         "TPUJOB_MESH_AXES": json.dumps(spec["spec"]["topology"].get("mesh_axes", {})),
@@ -1932,6 +2007,296 @@ def phase_jax_trajectory(dev, smi):
           "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": art["batch_size"],
           "seq": art["seq_len"], "losses": losses, "jax_losses": art["jax_losses"],
           "abs_diff": diffs, "limit": art["card_limit"], "launches": counts, "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# the input pipeline and the Evaluator
+# ---------------------------------------------------------------------------
+
+
+def phase_data_memmap(smi, dev="cuda"):
+    """gqa-2048 at full width and depth through run_lm with ``data:
+    memmap``: a corpus of CORPUS_TOKENS uint16 tokens written from
+    DATA_SEED, its last HOLDOUT_WINDOWS windows held out. The first
+    DATA_CHECKED batches that arrive on the card are byte-equal (by
+    sha256) to TokenMemmapDataset's own for the same seed; the flash
+    kernels run 2·L / L / L times a step; the copies ran on the loader's
+    stream, not the consumer's. Then 2 steps profiled on loader batches,
+    and ``data: stream`` for 1 + 2 steps with the same launch check.
+    Returns the memmap workload (eval_live scores its corpus) and the
+    corpus's directory, which the caller removes."""
+    d = ckpt_dir_with_room("data_memmap", 2 * CORPUS_TOKENS + (1 << 30))
+    try:
+        return _data_memmap(smi, dev, d)
+    except BaseException:
+        shutil.rmtree(d, ignore_errors=True)
+        raise
+
+
+def _data_memmap(smi, dev, d):
+    from tf_operator_tpu_torch.train.data import TokenMemmapDataset, write_token_corpus
+    from tf_operator_tpu_torch.workloads.lm import lm_loader
+
+    corpus = str(d / "corpus.bin")
+    cfg = preset_from_workload(TRAIN_WL)
+    t0 = time.perf_counter()
+    write_token_corpus(corpus, np.random.default_rng(DATA_SEED).integers(
+        0, cfg.vocab, CORPUS_TOKENS, dtype=np.uint16))
+    corpus_s = time.perf_counter() - t0
+    wl = {**TRAIN_WL, "data": "memmap", "corpus": corpus, "holdout_windows": HOLDOUT_WINDOWS}
+    arrived = []
+
+    def tap(tokens):
+        if len(arrived) < DATA_CHECKED:
+            arrived.append(tokens.clone())  # on the consumer's stream, after the copy
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    run = run_lm(wl, device=dev, on_batch=tap)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    L, n = run.cfg.n_layers, len(run.losses)
+    want = {name: DENSE_PER_LAYER.get(name, 0) * L * n for name in COUNTERS}
+    check(counts == want, f"data_memmap launches {counts} != {want}")
+    check(all(np.isfinite(run.losses)), f"data_memmap: non-finite loss: {run.losses}")
+    ds = TokenMemmapDataset(corpus, wl["batch_size"], wl["seq_len"], holdout=HOLDOUT_WINDOWS)
+    host = [b["tokens"] for _, b in zip(range(DATA_CHECKED), ds)]
+    card_sha = [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest() for t in arrived]
+    host_sha = [hashlib.sha256(np.ascontiguousarray(h).tobytes()).hexdigest() for h in host]
+    check(len(arrived) == DATA_CHECKED and card_sha == host_sha and arrived[0].dtype ==
+          torch.int32, f"data_memmap: card batches {card_sha} != the dataset's {host_sha}")
+    data = run.data
+    compute_stream = torch.cuda.current_stream(dev).stream_id
+    check(data["copy_stream"] is not None and data["copy_stream"] != data["consumer_stream"]
+          and data["consumer_stream"] == compute_stream,
+          f"data_memmap: copies on stream {data['copy_stream']}, steps on "
+          f"{data['consumer_stream']} (compute stream {compute_stream})")
+    check(data["delivered"] == n, f"data_memmap: {data['delivered']} batches for {n} steps")
+    loader = lm_loader(wl, run.cfg, dev, skip=n)
+    try:
+        brk = phase_train_breakdown(run, smi, phase="data_memmap_breakdown",
+                                    pull=lambda: next(loader)["tokens"].long())
+    finally:
+        loader.close()
+    emit({"phase": "data_memmap", "preset": wl["preset"], "batch": wl["batch_size"],
+          "seq": wl["seq_len"], "corpus_tokens": CORPUS_TOKENS, "corpus_dtype": "uint16",
+          "holdout_windows": HOLDOUT_WINDOWS, "corpus_write_s": corpus_s,
+          "steps": n, "timed_steps": run.timed, "losses": run.losses, "launches": counts,
+          "launches_per_step": {k: v / n for k, v in counts.items()},
+          "batches_checked": DATA_CHECKED, "batch_sha256": card_sha, "bytes_equal": True,
+          "step_ms": run.step_s * 1e3, "tokens_per_s": run.tokens_per_s,
+          "mfu_exact": run.mfu(run.flops_exact), "mfu_6nd": run.mfu(run.flops_6nd),
+          "device_busy_ms_per_step": brk["device_busy_ms_per_step"],
+          "device_idle_share": brk["device_idle_share"], "loader": data,
+          "copy_stream_is_compute_stream": False, "card": smi})
+    del run, loader
+    torch.cuda.empty_cache()
+    stream_wl = {**TRAIN_WL, "data": "stream", "steps": 2}
+    reset_counts()
+    srun = run_lm(stream_wl, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = len(srun.losses)
+    want = {name: DENSE_PER_LAYER.get(name, 0) * L * n for name in COUNTERS}
+    check(counts == want, f"data_stream launches {counts} != {want}")
+    check(all(np.isfinite(srun.losses)), f"data_stream: non-finite loss: {srun.losses}")
+    check(srun.data["copy_stream"] != srun.data["consumer_stream"],
+          f"data_stream: copies on the consumer's stream: {srun.data}")
+    emit({"phase": "data_stream", "steps": n, "losses": srun.losses, "launches": counts,
+          "step_ms": srun.step_s * 1e3, "tokens_per_s": srun.tokens_per_s,
+          "loader": srun.data, "card": smi})
+    del srun
+    torch.cuda.empty_cache()
+    return wl, d
+
+
+EVAL_TIMING = re.compile(r"eval timing: step=(\d+) restore_s=([\d.]+) score_s=([\d.]+) "
+                         r"value=(\S+) flash_fwd_launches=(\d+) flash_bwd_dq_launches=(\d+) "
+                         r"flash_bwd_dkv_launches=(\d+)")
+
+
+def phase_eval_live(smi, memmap_wl, dev="cuda"):
+    """The north-star spec on data_memmap's corpus (EVAL_LIVE_OVERRIDES:
+    10 steps, a checkpoint every 4 kept 3 deep), with the Evaluator
+    (``tf_operator_tpu_torch.workloads.eval:main``) launched through the
+    real harness as the operator's Evaluator replica before the trainer
+    and before any checkpoint exists, then the trainer through the
+    harness as operator_resume runs it. Both exit 0; the report holds
+    every saved step, oldest first, each CE finite; the evaluator launched
+    K1 n_layers x eval_batches times a scored checkpoint and no K2 or K3;
+    the last step's CE is held to a recompute here through K1's plain
+    version on the same holdout batches, within EVAL_CE_ATOL."""
+    from tf_operator_tpu_torch.workloads.eval import lm_scorer
+
+    spec = json.loads(NORTHSTAR_SPEC.read_text())
+    cfg = preset_from_workload(spec["spec"]["workload"])
+    d = ckpt_dir_with_room("eval_live", 3 * 12 * cfg.n_params() + (1 << 30))
+    ckpt = d / "ckpt"
+    report = d / "eval_report.json"
+    wl = {**spec["spec"]["workload"], **EVAL_LIVE_OVERRIDES,
+          "corpus": memmap_wl["corpus"], "holdout_windows": memmap_wl["holdout_windows"],
+          "checkpoint_dir": str(ckpt), "eval_report": str(report)}
+    torch.cuda.empty_cache()
+    try:
+        eval_log, train_log = d / "evaluator-0.log", d / "worker-0.log"
+        t0 = time.perf_counter()
+        with open(eval_log, "w") as out:
+            evaluator = subprocess.Popen(
+                [sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"],
+                env=harness_env(spec, wl, ckpt, replica_type="Evaluator",
+                                entrypoint="tf_operator_tpu_torch.workloads.eval:main"),
+                cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            check(not ckpt.exists() or not os.listdir(ckpt),
+                  "eval_live: a checkpoint existed before the evaluator started")
+            train_log.write_text("")
+            rc_train, train_s = run_harness(spec, wl, ckpt, train_log)
+            rc_eval = evaluator.wait(timeout=600)
+        finally:
+            if evaluator.poll() is None:
+                evaluator.kill()
+                evaluator.wait()
+        eval_s = time.perf_counter() - t0
+        text = train_log.read_text()
+        etext = eval_log.read_text()
+        check(rc_train == 0, f"eval_live: trainer exit {rc_train}:\n{text[-3000:]}")
+        check(rc_eval == 0, f"eval_live: evaluator exit {rc_eval}:\n{etext[-3000:]}")
+        trained = harness_result(text, "eval_live")
+        saved = ckpt_mod.CheckpointManager(str(ckpt), readonly=True).all_steps()
+        check(saved == list(EVAL_LIVE_STEPS), f"eval_live: saved steps {saved}")
+        steps_run = EVAL_LIVE_STEPS[-1]
+        want = {k: v * cfg.n_layers * steps_run for k, v in DENSE_PER_LAYER.items()}
+        check(trained["launches"] == want, f"eval_live: trainer launches {trained['launches']}")
+        scored = json.loads(report.read_text())
+        check([int(k) for k in scored] == saved and all(math.isfinite(v) for v in
+                                                      scored.values()),
+              f"eval_live: report {scored} against saved steps {saved}")
+        lines = EVAL_TIMING.findall(etext)
+        per_ckpt = {int(st): {"restore_s": float(r), "score_s": float(sc),
+                              "launches": [int(f), int(q), int(k)]}
+                    for st, r, sc, _, f, q, k in lines}
+        want_eval = [cfg.n_layers * wl["eval_batches"], 0, 0]
+        check(sorted(per_ckpt) == saved and all(v["launches"] == want_eval
+                                                 for v in per_ckpt.values()),
+              f"eval_live: evaluator launches {per_ckpt}, want {want_eval} a checkpoint")
+        last = saved[-1]
+        templates, score, _ = lm_scorer(wl, dev)
+        restored = ckpt_mod.CheckpointManager(str(ckpt), readonly=True).restore_subtrees(
+            templates, step=last, device=dev)
+        reset_counts()
+        with plain_kernels():
+            plain_ce, _ = score(restored)
+        check(not any(read_counts().values()), "eval_live: the recompute launched kernels")
+        diff = abs(scored[str(last)] - plain_ce)
+        check(diff <= EVAL_CE_ATOL, f"eval_live: step {last} CE {scored[str(last)]} vs "
+                                    f"plain {plain_ce} (limit {EVAL_CE_ATOL})")
+        del restored, templates
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "eval_live", "spec": str(NORTHSTAR_SPEC.relative_to(REPO)),
+          "overrides": EVAL_LIVE_OVERRIDES, "exit_codes": {"trainer": rc_train,
+                                                           "evaluator": rc_eval},
+          "saved_steps": saved, "report": scored, "per_checkpoint": per_ckpt,
+          "evaluator_launches_per_checkpoint_want": want_eval,
+          "last_step_ce_plain": plain_ce, "last_step_ce_abs_diff": diff,
+          "limit": EVAL_CE_ATOL, "trainer": trained, "trainer_s": train_s,
+          "evaluator_s": eval_s, "card": smi})
+
+
+def idx_fixture(d: Path) -> Path:
+    """MNIST-geometry idx files (28x28 uint8) from DATA_SEED: REAL_TRAIN
+    train and REAL_TEST test images, labels 0-9 drawn at random."""
+    from tf_operator_tpu_torch.train.data import write_idx
+
+    rng = np.random.default_rng(DATA_SEED)
+    d.mkdir(parents=True, exist_ok=True)
+    for prefix, n in (("train", REAL_TRAIN), ("t10k", REAL_TEST)):
+        write_idx(str(d / f"{prefix}-images-idx3-ubyte"),
+                  rng.integers(0, 256, (n, 28, 28), dtype=np.uint8))
+        write_idx(str(d / f"{prefix}-labels-idx1-ubyte"),
+                  rng.integers(0, 10, n, dtype=np.uint8))
+    return d
+
+
+def phase_resnet_real(smi, dev="cuda"):
+    """The real-image path (train_real) at ResNet-50 width and depth with
+    the workload of examples/resnet_real_idx_h100.json (224^2 from 28x28 x8,
+    b 256, crop padding 16, no flip, 10 classes, lr 0.1, augmented) on a
+    seeded idx fixture, one epoch, fused_1x1 through cfg: K8 exactly 36
+    times a step; the native augmenter served every batch the loader
+    staged; finite losses; the test accuracy in [0, 1] and the same when
+    rescored with eval_b 64 and 100. Then 2 steps on loader batches
+    profiled."""
+    from tf_operator_tpu_torch.train import data as data_mod
+    from tf_operator_tpu_torch.workloads.resnet import (
+        make_test_accuracy,
+        resnet_config_from_workload,
+        test_split,
+        train_real,
+    )
+
+    spec = json.loads(REAL_SPEC.read_text())
+    d = ckpt_dir_with_room("resnet_real", 4 << 30)
+    try:
+        data_dir = idx_fixture(d / "mnist")
+        wl = {k: v for k, v in spec["spec"]["workload"].items()
+              if not k.startswith("checkpoint_")}
+        wl.update(RESNET_REAL_OVERRIDES, data_dir=str(data_dir))
+        cfg = replace(resnet_config_from_workload(wl), fused_1x1=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        data_mod.native_augment_batches = 0
+        run = train_real(wl, device=dev, cfg=cfg)
+        counts = read_counts()
+        native = data_mod.native_augment_batches
+        steps = len(run.losses)
+        per_step = len(fused_1x1_shapes(cfg, wl["batch_size"], wl["image_size"]))
+        want = {name: 0 for name in COUNTERS}
+        want["fused_linear_stats_launches"] = per_step * steps
+        check(counts == want, f"resnet_real launches {counts} != {want}")
+        check(steps == REAL_TRAIN // wl["batch_size"], f"resnet_real: {steps} steps")
+        check(native == run.data["staged"] >= steps,
+              f"resnet_real: native augmenter served {native} of {run.data['staged']} "
+              f"staged batches")
+        check(all(np.isfinite(run.losses)), f"resnet_real: non-finite loss: {run.losses}")
+        images, labels = test_split(wl["data_dir"], wl["image_size"])
+        scorer = make_test_accuracy(cfg)
+        rescored = {eval_b: scorer(run.state.params, run.state.extra, images, labels, eval_b)
+                    for eval_b in (64, 100)}
+        check(0.0 <= run.accuracy <= 1.0 and rescored[64] == rescored[100] == run.accuracy,
+              f"resnet_real: accuracy {run.accuracy}, rescored {rescored}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        ds = data_mod.MnistIdxDataset(wl["data_dir"], wl["batch_size"], seed=1)
+        ds.arrays["image"] = data_mod.prepare_classification_images(ds.arrays["image"],
+                                                                    wl["image_size"])
+        loader = data_mod.DeviceLoader(data_mod.AugmentedImages(
+            ds, pad=wl["crop_padding"], flip=wl["flip"], seed=1), dev)
+
+        def pull():
+            b = next(loader)
+            return b["image"], b["label"].long()
+
+        try:
+            brk = phase_train_breakdown(run, smi, phase="resnet_real_breakdown", pull=pull)
+        finally:
+            loader.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "resnet_real", "variant": wl["variant"], "fused_1x1": True,
+          "batch": wl["batch_size"], "image": wl["image_size"],
+          "train_images": REAL_TRAIN, "test_images": REAL_TEST, "epochs": wl["epochs"],
+          "steps": steps, "losses": run.losses, "launches": counts,
+          "fls_launches_per_step": counts["fused_linear_stats_launches"] / steps,
+          "native_augment_batches": native, "loader": run.data,
+          "stager_host_ms_per_batch": run.data["source_ms"] + run.data["pin_ms"],
+          "step_ms": run.step_s * 1e3, "images_per_s": run.images_per_s, "mfu": run.mfu(),
+          "accuracy": run.accuracy, "accuracy_rescored": rescored, "eval_s": run.eval_s,
+          "device_busy_ms_per_step": brk["device_busy_ms_per_step"],
+          "device_idle_share": brk["device_idle_share"],
+          "device_idle_share_without_htod": brk["device_idle_share_without_htod"],
+          "peak_mem_gb": peak_gb, "card": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -2888,6 +3253,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("operator_resume", phase_operator_resume, smi)
     run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
+    # the input pipeline and the Evaluator on the same model
+    memmap_wl, corpus_dir = run_phase("data_memmap", phase_data_memmap, smi, dev)
+    try:
+        run_phase("eval_live", phase_eval_live, smi, memmap_wl, dev)
+    finally:
+        shutil.rmtree(corpus_dir, ignore_errors=True)
 
     # MoE training path: moe-small
     gmm_err = run_phase("gmm_check", phase_gmm_check, dev)
@@ -2921,6 +3292,8 @@ def main() -> int:
     run_phase("resnet_breakdown_unfused", phase_train_breakdown, unfused_run, smi,
               phase="resnet_breakdown_unfused", batch=unfused_run.batch)
     del unfused_run
+    torch.cuda.empty_cache()
+    run_phase("resnet_real", phase_resnet_real, smi, dev)
     torch.cuda.empty_cache()
     run_phase("resnet_parity", phase_resnet_parity, dev)
     torch.cuda.empty_cache()

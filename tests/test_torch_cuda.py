@@ -376,3 +376,34 @@ def test_fls_kernel_refuses_unsupported(dev):
     with pytest.raises(ValueError, match="contiguous"):
         fls.fused_linear_stats(torch.zeros(64, 256, device=dev).t(),
                                torch.zeros(64, 32, device=dev))
+
+
+def test_device_loader_stages_on_its_own_stream(dev):
+    """DeviceLoader on the card: every batch arrives byte-equal to the host's,
+    copied on the loader's stream (not the consumer's) through a ring of
+    prefetch + 1 pinned buffer sets that is reused, not grown; close()
+    while the stager is blocked leaves no copy in flight."""
+    from tf_operator_tpu_torch.train.data import DeviceLoader
+
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((64, 1024), dtype=np.float32),
+             "y": rng.integers(0, 10, 64, dtype=np.int32)} for _ in range(8)]
+    loader = DeviceLoader(iter(host), dev, prefetch=2)
+    got = [{k: v.cpu().numpy() for k, v in b.items()} for b in loader]
+    assert len(got) == 8
+    for a, b in zip(host, got):
+        assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+    stats = loader.stats()
+    assert stats["copy_stream"] != stats["consumer_stream"]
+    assert stats["consumer_stream"] == torch.cuda.current_stream(dev).stream_id
+    assert len(loader._slots) == 3 and all(s[0][0].is_pinned() for s in loader._slots)
+    assert stats["copy_device_ms"] is not None and stats["batch_bytes"] == 64 * 1024 * 4 + 256
+
+    def endless():
+        while True:
+            yield host[0]
+
+    loader = DeviceLoader(endless(), dev, prefetch=1)
+    next(loader)
+    loader.close()
+    assert not loader._thread.is_alive() and loader.copy_stream.query()

@@ -12,6 +12,7 @@ are submitted at once to one operator (a module fixture); each test waits
 for its own.
 """
 
+import json
 import os
 
 import numpy as np
@@ -50,7 +51,47 @@ JOBS = {
                     "max_slots": 2, "prefill_chunk": 8, "seed": 1, "device": "cpu"}),
     "port-phoenix": ("tf_operator_tpu_torch.workloads.lm:main",
                      {**LM, "steps": 6, "checkpoint_every": 2, "fail_at_step": 4}),
+    # the evaluator needs a few seconds to start; the trainer's 800 steps
+    # (~10-15 ms each) keep the chief alive long after its first checkpoint,
+    # and keeping all 8 checkpoints leaves step 100 on disk however late
+    # the evaluator's first scan comes
+    "port-lm-eval": ("tf_operator_tpu_torch.workloads.lm:main",
+                     {**LM, "steps": 800, "seq_len": 32, "data": "memmap",
+                      "holdout_windows": 8, "checkpoint_every": 100, "checkpoint_keep": 8,
+                      "train_steps": 100,
+                      "eval_batch_size": 2, "eval_seq_len": 32, "eval_batches": 2,
+                      "poll_interval_s": 0.2, "max_wait_s": 120}),
+    "port-eval-only": ("tf_operator_tpu_torch.workloads.eval:main",
+                       {"preset": "tiny", "eval_batch_size": 2, "eval_seq_len": 16,
+                        "eval_batches": 1, "poll_interval_s": 0.1, "max_wait_s": 60,
+                        "device": "cpu"}),
 }
+EVAL_ENTRY = "tf_operator_tpu_torch.workloads.eval:main"
+# the long-running evaluator job's processes take one thread each
+ONE_THREAD = {"port-lm-eval", "port-eval-only"}
+
+
+def _prepare(tmp):
+    """The memmapped corpus and the eval-only job's checkpoints (the port's
+    tiny LM after 2 steps)."""
+    import torch
+
+    from tf_operator_tpu_torch.models import transformer as tt
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.data import write_token_corpus
+    from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    write_token_corpus(str(tmp / "corpus.bin"),
+                       np.random.default_rng(0).integers(0, 256, 64 * 32))
+    cfg = tt.preset("tiny")
+    trainer = Trainer(loss_fn=lambda p, tok, e: tt.lm_loss(p, tok, cfg),
+                      init_fn=lambda g: tt.init_transformer(cfg, g, "cpu"),
+                      config=TrainerConfig(), device="cpu")
+    state = trainer.init(0)
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(0, 256, (2, 16)))
+    for _ in range(2):
+        state, _ = trainer.step(state, tokens)
+    CheckpointManager(str(tmp / "eval-only-ckpt")).save(2, state, wait=True)
 
 
 @pytest.fixture(scope="module")
@@ -63,19 +104,29 @@ def operator(tmp_path_factory):
     ctl = TPUJobController(store, pc, resync_period=0.5)
     ctl.run(workers=4)
     ckpt, marker = str(tmp / "ckpt"), str(tmp / "died-once")
+    _prepare(tmp)
     try:
         for name, (entry, wl) in JOBS.items():
-            job = TPUJob(
-                metadata=ObjectMeta(name=name),
-                spec=TPUJobSpec(replica_specs={ReplicaType.WORKER: ReplicaSpec(
-                    replicas=1,
-                    template=ProcessTemplate(entrypoint=entry, env=dict(PORT_ENV)))}),
-            )
+            env = {**PORT_ENV, "OMP_NUM_THREADS": "1"} if name in ONE_THREAD else PORT_ENV
+            replicas = {ReplicaType.WORKER: ReplicaSpec(
+                replicas=1, template=ProcessTemplate(entrypoint=entry, env=dict(env)))}
+            if name == "port-lm-eval":
+                replicas[ReplicaType.EVALUATOR] = ReplicaSpec(
+                    replicas=1, template=ProcessTemplate(entrypoint=EVAL_ENTRY, env=dict(env)))
+            job = TPUJob(metadata=ObjectMeta(name=name),
+                         spec=TPUJobSpec(replica_specs=replicas))
             job.spec.workload = dict(wl)
             if name == "port-phoenix":
                 job.spec.workload.update(checkpoint_dir=ckpt, fail_marker=marker)
+            elif name == "port-lm-eval":
+                job.spec.workload.update(checkpoint_dir=str(tmp / "lm-eval-ckpt"),
+                                         corpus=str(tmp / "corpus.bin"),
+                                         eval_report=str(tmp / "lm-eval-report.json"))
+            elif name == "port-eval-only":
+                job.spec.workload.update(checkpoint_dir=str(tmp / "eval-only-ckpt"),
+                                         eval_report=str(tmp / "eval-only-report.json"))
             store.create(job)
-        yield store, tmp / "logs", ckpt, marker
+        yield store, tmp / "logs", ckpt, marker, tmp
     finally:
         ctl.stop()
         pc.shutdown()
@@ -97,7 +148,7 @@ def _succeeded(store, name, logs):
                                        ("port-resnet", "resnet done: loss="),
                                        ("port-serve", "requests=3/3")])
 def test_port_job_succeeds_through_operator(operator, name, done):
-    store, logs, _, _ = operator
+    store, logs = operator[:2]
     st, text = _succeeded(store, name, logs)
     assert st.restart_count == 0
     assert done in text
@@ -120,7 +171,7 @@ def test_port_phoenix_job_resumes_warm_after_gang_restart(operator):
     from tf_operator_tpu_torch.train.checkpoint import CheckpointManager, _flatten, _to_tree
     from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    store, logs, ckpt, marker = operator
+    store, logs, ckpt, marker, _ = operator
     st, text = _succeeded(store, "port-phoenix", logs)
     assert os.path.exists(marker) and st.restart_count >= 1
     assert "fault injection: requesting retry at step 4" in text
@@ -143,3 +194,25 @@ def test_port_phoenix_job_resumes_warm_after_gang_restart(operator):
     for w, g in zip(want, got):
         w = w.numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
         assert np.array_equal(w, np.asarray(g))
+
+
+def test_port_lm_job_with_evaluator_replica(operator):
+    """The Worker trains on the memmapped corpus and checkpoints every 100
+    steps; the Evaluator replica, outside the gang, scores the first
+    checkpoint on the corpus's holdout while the trainer runs on, and the
+    job reaches Succeeded (the chief's success)."""
+    store, logs, _, _, tmp = operator
+    st, text = _succeeded(store, "port-lm-eval", logs)
+    assert "lm done: preset=tiny" in text
+    eval_log = (logs / "default_port-lm-eval-evaluator-0.log").read_text()
+    assert "eval: checkpoint step=100 loss=" in eval_log, eval_log[-3000:]
+    scored = json.loads((tmp / "lm-eval-report.json").read_text())
+    assert list(scored)[0] == "100" and all(np.isfinite(v) for v in scored.values())
+
+
+def test_port_eval_only_job_scores_existing_checkpoints(operator):
+    store, logs, _, _, tmp = operator
+    st, text = _succeeded(store, "port-eval-only", logs)
+    assert "eval done: 1 checkpoints scored" in text
+    scored = json.loads((tmp / "eval-only-report.json").read_text())
+    assert list(scored) == ["2"] and np.isfinite(scored["2"])

@@ -155,10 +155,53 @@ def test_resnet_workload_main(tmp_path, caplog):
     images, labels = run.batch
     assert images.shape == (4, 32, 32, 3) and images.dtype == torch.float32
     assert labels.dtype == torch.int64 and int(labels.max()) < 10
-    for over, match in (({"checkpoint_dir": str(tmp_path), "checkpoint_backend": "orbax"},
-                         "orbax"), ({"data": "stream"}, "M5"),
-                        ({"data": "idx"}, "M5")):
-        with pytest.raises(NotImplementedError, match=match):
-            wl_mod.run_resnet({**wl, **over}, device="cpu")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        wl_mod.run_resnet({**wl, "checkpoint_dir": str(tmp_path),
+                           "checkpoint_backend": "orbax"}, device="cpu")
+    # streamed synthetic batches (ported: ROADMAP M5); idx trains through train_real
+    streamed = wl_mod.run_resnet({**wl, "data": "stream"}, device="cpu")
+    assert streamed.data["delivered"] == 3 and all(np.isfinite(streamed.losses))
+    with pytest.raises(ValueError, match="train_real"):
+        wl_mod.run_resnet({**wl, "data": "idx"}, device="cpu")
     with pytest.raises(NotImplementedError, match="M8"):
         wl_mod.main(type("C", (_Ctx,), {"num_processes": 2})(wl))
+
+
+def test_resnet_real_data_path(tmp_path, caplog):
+    """``data: idx`` through main: an 8x8 idx fixture upsampled to 32,
+    augmented, 2 epochs of 4 steps with a checkpoint every 3 (and the
+    final one), eval-mode accuracy reported to the context and gated by
+    target_accuracy."""
+    from tf_operator_tpu_torch.train import data as td
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 2, 40).astype(np.uint8)
+    images = (rng.random((40, 8, 8)) * 80 + labels[:, None, None] * 120).astype(np.uint8)
+    for prefix, n in (("train", 32), ("t10k", 10)):
+        td.write_idx(str(tmp_path / f"{prefix}-images-idx3-ubyte"), images[:n])
+        td.write_idx(str(tmp_path / f"{prefix}-labels-idx1-ubyte.gz"), labels[:n])
+    wl = {"variant": "tiny", "num_classes": 2, "data": "idx", "data_dir": str(tmp_path),
+          "image_size": 32, "batch_size": 8, "epochs": 2, "lr": 0.05, "crop_padding": 2,
+          "checkpoint_dir": str(tmp_path / "ckpt"), "checkpoint_every": 3, "device": "cpu"}
+    reported = []
+    ctx = type("C", (_Ctx,), {"process_id": 0,
+                              "report_eval_metrics": lambda self, s, m: reported.append((s, m))})
+    before = td.native_augment_batches
+    with caplog.at_level(logging.INFO, logger="tpujob.resnet"):
+        wl_mod.main(ctx(wl))
+    msgs = [r.message for r in caplog.records]
+    assert any("test accuracy" in m for m in msgs)
+    assert [m.split()[1] for m in msgs if m.startswith("step ")] == ["0/8", "1/8", "2/8",
+                                                                      "3/8", "4/8", "5/8",
+                                                                      "6/8", "7/8"]
+    assert td.native_augment_batches - before >= 8
+    assert CheckpointManager(str(tmp_path / "ckpt"), readonly=True).all_steps() == [3, 6, 8]
+    (step, metrics), = reported
+    assert step == 8 and 0.0 <= metrics["accuracy"] <= 1.0
+    run = wl_mod.train_real({**wl, "checkpoint_dir": None}, device="cpu")
+    assert len(run.losses) == 8 and run.data["delivered"] == 8 and run.step_s is not None
+    assert run.accuracy == metrics["accuracy"]  # the same seeds, the same run
+    with pytest.raises(AssertionError, match="below target"):
+        wl_mod.train_real({**wl, "checkpoint_dir": None, "target_accuracy": 1.01},
+                          device="cpu")

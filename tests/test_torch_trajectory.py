@@ -16,11 +16,17 @@ numpy-seeded init and batch, in f32.
   tests/test_torch_trajectory.py -m slow -k generate``; it takes ~20 GB.
 - ``test_artifact_schema_and_seeds``: the artifact has its keys, and its
   seeds reproduce its first batch and the head of its init's stream.
+- ``test_loader_trajectory_matches_jax``: ``run_lm`` with ``data: stream``
+  and ``memmap`` (f32, from the numpy init) against the JAX Trainer over
+  the JAX package's loader: 1 + 3 losses within 1e-5.
+- ``test_memmap_job_resumed_after_a_fault_ends_bitwise_equal``: a memmap
+  job that dies and resumes ends bitwise equal to an uninterrupted one.
 """
 
 import json
 import math
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tf_operator_tpu.models import transformer as jt  # noqa: E402
 from tf_operator_tpu.parallel import build_mesh  # noqa: E402
+from tf_operator_tpu.train import data as jd  # noqa: E402
 from tf_operator_tpu.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from tf_operator_tpu.train.trainer import TrainerConfig as JaxTrainerConfig  # noqa: E402
 from tf_operator_tpu.train.trainer import TrainState as JaxTrainState  # noqa: E402
@@ -157,3 +164,85 @@ def test_artifact_schema_and_seeds():
     assert _stream_head(art["init_seed"]) == art["init_stream_head"]
     head = init_transformer_numpy(tj.trajectory_config("tiny"), art["init_seed"])["embed"]
     assert head.reshape(-1)[:8].tolist() == art["init_stream_head"]
+
+
+# ---- streamed and memmapped data through the workload ------------------------
+
+
+def _loader_wl(tmp_path, data):
+    wl = {"preset": "tiny", "steps": 3, "batch_size": 2, "seq_len": 32, "attn": "flash",
+          "remat": "save_mid", "lr": tj.LR, "data": data, "device": "cpu",
+          "checkpoint_async": False}
+    if data == "memmap":
+        corpus = str(tmp_path / "corpus.bin")
+        jd.write_token_corpus(corpus, np.random.default_rng(3).integers(0, 256, 32 * 40))
+        wl.update(corpus=corpus, holdout_windows=4)
+    return wl
+
+
+@pytest.mark.parametrize("data", ["stream", "memmap"])
+def test_loader_trajectory_matches_jax(tmp_path, monkeypatch, data):
+    """``run_lm`` with ``data: stream`` or ``memmap`` (the port's loader, f32)
+    from the numpy init, which it resumes from a step-0 checkpoint, against
+    the JAX Trainer over the JAX package's own loader: 1 + 3 losses within
+    1e-5."""
+    from tf_operator_tpu_torch.compat import params_from_numpy
+    from tf_operator_tpu_torch.models import transformer as tt
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from tf_operator_tpu_torch.workloads.lm import run_lm
+
+    monkeypatch.setitem(tt.PRESETS, "tiny", replace(tt.PRESETS["tiny"], dtype=torch.float32))
+    wl = _loader_wl(tmp_path, data)
+    cfg = tj.trajectory_config("tiny")
+    params = init_transformer_numpy(cfg, INIT_SEED)
+    port = Trainer(loss_fn=None, init_fn=None,
+                   config=TrainerConfig(optimizer="adamw", learning_rate=tj.LR), device="cpu")
+    CheckpointManager(str(tmp_path / "ckpt")).save(
+        0, port.state_from_params(params_from_numpy(params, "cpu")), wait=True)
+    run = run_lm({**wl, "checkpoint_dir": str(tmp_path / "ckpt")}, device="cpu")
+
+    jcfg = jt.preset("tiny", dtype=jnp.float32, attn_impl="dense", remat=True)
+    mesh = build_mesh({"dp": 1}, devices=jax.devices()[:1])
+    trainer = JaxTrainer(mesh, loss_fn=lambda p, tok, extra: jt.lm_loss(p, tok, jcfg),
+                         init_fn=lambda k: jt.init_transformer(k, jcfg),
+                         config=JaxTrainerConfig(optimizer="adamw", learning_rate=tj.LR))
+    p = jax.tree_util.tree_map(jnp.asarray, params)
+    state = JaxTrainState(p, jax.jit(trainer.tx.init)(p), jnp.zeros((), jnp.int32), None)
+    if data == "memmap":
+        loader = jd.DeviceLoader(jd.TokenMemmapDataset(wl["corpus"], 2, 32, holdout=4),
+                                 trainer.batch_sharding)
+    else:
+        loader = jd.local_loader(jd.SyntheticTokens, 2, trainer.batch_sharding, seq_len=32,
+                                 vocab=jcfg.vocab)
+    want = []
+    with loader:
+        for _, batch in zip(range(4), loader):
+            state, m = trainer.step(state, batch["tokens"])
+            want.append(float(m["loss"]))
+    assert run.data["delivered"] == 4
+    np.testing.assert_allclose(run.losses, want, atol=1e-5, rtol=0)
+
+
+def test_memmap_job_resumed_after_a_fault_ends_bitwise_equal(tmp_path):
+    """A memmap job that dies at step 3 (its last checkpoint at step 2) and
+    resumes skips the two batches it consumed and ends with the params of
+    an uninterrupted run, bit for bit."""
+    from tf_operator_tpu_torch.workloads.lm import run_lm
+
+    wl = {**_loader_wl(tmp_path, "memmap"), "steps": 5, "checkpoint_every": 2}
+
+    def die_at_3(step):
+        if step == 3:
+            raise RuntimeError("injected fault at step 3")
+
+    faulty = {**wl, "checkpoint_dir": str(tmp_path / "faulty")}
+    with pytest.raises(RuntimeError, match="injected fault"):
+        run_lm(faulty, device="cpu", on_step=die_at_3)
+    resumed = run_lm(faulty, device="cpu")
+    whole = run_lm({**wl, "checkpoint_dir": str(tmp_path / "whole")}, device="cpu")
+    assert resumed.data["delivered"] == 4 and whole.data["delivered"] == 6
+    assert resumed.losses[-3:] == whole.losses[-3:]
+    for k, v in whole.state.params["layers"].items():
+        assert torch.equal(resumed.state.params["layers"][k], v), k
+    assert torch.equal(resumed.state.params["embed"], whole.state.params["embed"])

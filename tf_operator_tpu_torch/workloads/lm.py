@@ -2,12 +2,14 @@
 
 Port of ``tf_operator_tpu/workloads/lm.py``: trains a transformer preset
 (dense, or MoE with ``moe_dispatch: gmm``) with the single-device Trainer
-on synthetic tokens and logs tokens/s and MFU, counted on the params a
-token touches (``n_active_params``, so top-1 MoE counts one expert). For
-MoE presets it then logs the router health line of the JAX workload
-(expert entropy against uniform, drop fraction, the router losses) on the
-trained params and the ``data: fixed`` batch. The operator launches
-``tf_operator_tpu_torch.workloads.lm:main`` like any entrypoint; ``main``
+on one fixed batch, synthetic batches streamed through the DeviceLoader,
+or a tokenized corpus memmap, and logs tokens/s and MFU, counted on the
+params a token touches (``n_active_params``, so top-1 MoE counts one
+expert). For MoE presets it then logs the router health line of the JAX
+workload (expert entropy against uniform, drop fraction, the router
+losses) on the trained params and the fixed (or probe) batch. The
+operator launches ``tf_operator_tpu_torch.workloads.lm:main`` like any
+entrypoint; ``main``
 uses the context only through its attributes (``workload``,
 ``num_processes``, ``mark_first_step``, and the checkpointer's optional
 ones). A job whose checkpoints already cover its budget returns at once;
@@ -19,17 +21,26 @@ line.
 Workload keys: the JAX workload's (preset and TransformerConfig overrides
 including ``attn`` and ``remat``, steps, batch_size, seq_len, lr,
 grad_accum, data, device_loop, profile_dir, fail_at_step, fail_marker,
-checkpoint_dir, checkpoint_every, checkpoint_keep, checkpoint_async,
-checkpoint_backend) plus ``device`` (default ``cuda``). Declared
-differences from the JAX workload:
+corpus, holdout_windows, checkpoint_dir, checkpoint_every,
+checkpoint_keep, checkpoint_async, checkpoint_backend) plus ``device``
+(default ``cuda``). Declared differences from the JAX workload:
 
 - ``data: fixed`` draws its batch with
   ``np.random.RandomState(1).randint(0, vocab, (batch, seq))``, where JAX
   uses ``jax.random.randint(PRNGKey(1), ...)``; init draws from a
-  ``torch.Generator`` seeded 0 where JAX uses ``PRNGKey(0)``.
-- Not ported yet, and raising: ``data: stream``/``memmap`` (ROADMAP M5),
-  ``checkpoint_backend: orbax`` (``auto`` means npy), more than one
-  process (M8), MoE dispatches other than ``gmm`` (M11).
+  ``torch.Generator`` seeded 0 where JAX uses ``PRNGKey(0)``. Under
+  ``data: stream`` and ``memmap`` the router probe batch is
+  ``np.random.RandomState(2).randint(...)``, where JAX uses ``PRNGKey(2)``.
+- ``data: stream`` (``SyntheticTokens`` through ``local_loader``) and
+  ``data: memmap`` (``corpus``, a ``write_token_corpus`` memmap, its last
+  ``holdout_windows`` windows held out for the Evaluator) yield the JAX
+  package's batches byte for byte (``train/data.py``); a resumed job skips
+  the batches its checkpoint's steps consumed. Tokens arrive on the card
+  as int32 and are widened to int64 there. A ``data`` value other than
+  fixed, stream and memmap raises, where JAX trains on its fixed batch.
+- Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
+  means npy), more than one process (M8), MoE dispatches other than
+  ``gmm`` (M11).
 """
 
 from __future__ import annotations
@@ -53,6 +64,12 @@ from tf_operator_tpu_torch.models.transformer import (
 )
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
+from tf_operator_tpu_torch.train.data import (
+    DeviceLoader,
+    SyntheticTokens,
+    TokenMemmapDataset,
+    local_loader,
+)
 from tf_operator_tpu_torch.train.metrics import (
     mfu,
     transformer_train_flops,
@@ -76,7 +93,7 @@ class LMRun:
     cfg: TransformerConfig
     trainer: Trainer
     state: TrainState
-    tokens: torch.Tensor
+    tokens: torch.Tensor  # the fixed batch, or the router probe batch of a loader run
     loss: float
     losses: List[float]  # every step's loss, warmup included
     timed: int
@@ -85,6 +102,7 @@ class LMRun:
     device: torch.device
     flops_6nd: float
     flops_exact: float
+    data: Optional[dict] = None  # DeviceLoader.stats() of a stream or memmap run
 
     @property
     def tokens_per_s(self) -> Optional[float]:
@@ -97,28 +115,48 @@ class LMRun:
         return mfu(flops, self.step_s, 1, self.device)
 
 
-def fixed_tokens(batch: int, seq: int, vocab: int, device) -> torch.Tensor:
-    """The ``data: fixed`` batch (a declared difference: numpy, not jax.random)."""
-    tokens = np.random.RandomState(1).randint(0, vocab, (batch, seq))
+def fixed_tokens(batch: int, seq: int, vocab: int, device, seed: int = 1) -> torch.Tensor:
+    """The ``data: fixed`` batch, ``RandomState(seed)`` (a declared
+    difference: numpy, not jax.random); seed 2 is the router probe batch."""
+    tokens = np.random.RandomState(seed).randint(0, vocab, (batch, seq))
     return torch.from_numpy(tokens).to(device)
+
+
+def lm_loader(wl: dict, cfg: TransformerConfig, device, skip: int = 0) -> Optional[DeviceLoader]:
+    """The DeviceLoader of ``data: memmap`` or ``stream``, None for
+    ``fixed``; ``skip`` batches already consumed."""
+    data_mode = wl.get("data", "fixed")
+    batch, seq = int(wl.get("batch_size", 8)), int(wl.get("seq_len", 512))
+    if data_mode == "memmap":
+        # the corpus tail (holdout_windows) is reserved for the Evaluator
+        # before rank-sharding: the trainer never sees those windows
+        ds = TokenMemmapDataset(wl["corpus"], batch, seq,
+                                holdout=int(wl.get("holdout_windows", 0)))
+        return DeviceLoader(ds, device, skip=skip)
+    if data_mode == "stream":
+        return local_loader(SyntheticTokens, batch, device, seq_len=seq, vocab=cfg.vocab,
+                            skip=skip)
+    if data_mode != "fixed":
+        raise ValueError(f'unknown data mode {data_mode!r}; use "fixed", "stream" or "memmap"')
+    return None
 
 
 def run_lm(wl: dict, device: DeviceLike = None,
            on_step: Optional[Callable[[int], None]] = None,
-           ckpt: Optional[WorkloadCheckpointer] = None) -> LMRun:
+           ckpt: Optional[WorkloadCheckpointer] = None,
+           on_batch: Optional[Callable[[torch.Tensor], None]] = None) -> LMRun:
     """Build the model from ``wl``, train ``steps`` timed steps after one
     warmup step (from the latest checkpoint, when ``checkpoint_dir`` holds
     one), and return an LMRun. ``device`` overrides the workload's
     ``device`` key (default ``cuda``); ``ckpt`` is the checkpointer to use
-    (by default one built from ``wl``, without a job context)."""
+    (by default one built from ``wl``, without a job context);
+    ``on_batch(tokens)`` sees each loader batch as it arrives on the
+    device, before the step that reads it."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     steps = max(2, int(wl.get("steps", 10)))
     batch = int(wl.get("batch_size", 8))
     seq = int(wl.get("seq_len", 512))
     cfg = preset_from_workload(wl)
-    data_mode = wl.get("data", "fixed")
-    if data_mode != "fixed":
-        raise NotImplementedError(f"data: {data_mode!r} is not ported yet (ROADMAP M5)")
     ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
     trainer = Trainer(
         loss_fn=lambda params, tokens, extra: lm_loss(params, tokens, cfg),
@@ -129,12 +167,27 @@ def run_lm(wl: dict, device: DeviceLike = None,
         ),
         device=dev,
     )
-    tokens = fixed_tokens(batch, seq, cfg.vocab, dev)
-    with profile_ctx(wl.get("profile_dir")):
-        state, loss, timed, step_s = ckpt.run_loop(
-            trainer, 0, tokens, steps, on_step=on_step,
-            device_loop=int(wl.get("device_loop", 1)),
-        )
+    loader = lm_loader(wl, cfg, dev, skip=ckpt.resume_step())
+    if loader is None:
+        tokens = data = fixed_tokens(batch, seq, cfg.vocab, dev)
+    else:
+        def pull():
+            for b in loader:
+                if on_batch is not None:
+                    on_batch(b["tokens"])
+                yield b["tokens"].long()
+
+        data = pull()
+        tokens = fixed_tokens(batch, seq, cfg.vocab, dev, seed=2)
+    try:
+        with profile_ctx(wl.get("profile_dir")):
+            state, loss, timed, step_s = ckpt.run_loop(
+                trainer, 0, data, steps, on_step=on_step,
+                device_loop=int(wl.get("device_loop", 1)),
+            )
+    finally:
+        if loader is not None:
+            loader.close()
     n = cfg.n_active_params()
     return LMRun(
         cfg=cfg, trainer=trainer, state=state, tokens=tokens, loss=loss,
@@ -143,13 +196,15 @@ def run_lm(wl: dict, device: DeviceLike = None,
         flops_6nd=transformer_train_flops(n, batch * seq),
         flops_exact=transformer_train_flops_exact(n, batch * seq, cfg.n_layers,
                                                   cfg.d_model, seq),
+        data=None if loader is None else loader.stats(),
     )
 
 
 def router_metrics(run: LMRun) -> Optional[dict]:
-    """Router health on the trained params and the run's batch: expert
-    entropy (nats; ``uniform`` = ln E), drop fraction and the unweighted
-    router losses, as floats. None for a dense model. One forward pass."""
+    """Router health on the trained params and the run's batch (the probe
+    batch of a loader run): expert entropy (nats; ``uniform`` = ln E),
+    drop fraction and the unweighted router losses, as floats. None for a
+    dense model. One forward pass."""
     if not run.cfg.n_experts:
         return None
     with torch.no_grad():

@@ -1,49 +1,78 @@
 """ResNet training workload on the port (operator-launchable).
 
 Port of ``tf_operator_tpu/workloads/resnet.py``: trains a ResNet variant
-with the single-device Trainer (SGD, momentum 0.9, no clip) on one fixed
-synthetic batch and logs the JAX workload's line: loss, step ms,
-images/s and MFU (``resnet_train_flops``, 3x the forward). The operator
-launches ``tf_operator_tpu_torch.workloads.resnet:main`` like any
-entrypoint; ``main`` uses the context only through its attributes
-(``workload``, ``num_processes``, and the checkpointer's optional ones).
-Checkpoints hold the BN running statistics as ``extra``; a job whose
-checkpoints already cover its budget returns at once, a restarted one
-resumes from its latest checkpoint.
+with the single-device Trainer (SGD, momentum 0.9, no clip) and logs the
+JAX workload's line: loss, step ms, images/s and MFU
+(``resnet_train_flops``, 3x the forward). The operator launches
+``tf_operator_tpu_torch.workloads.resnet:main`` like any entrypoint;
+``main`` uses the context only through its attributes (``workload``,
+``num_processes``, ``process_id``, ``report_eval_metrics`` and the
+checkpointer's optional ones). Checkpoints hold the BN running
+statistics as ``extra``; a job whose checkpoints already cover its budget
+returns at once, a restarted one resumes from its latest checkpoint.
 
-Workload keys: the JAX workload's (steps, batch_size, image_size,
-num_classes, lr, variant, data, device_loop, profile_dir, checkpoint_dir,
-checkpoint_every, checkpoint_keep, checkpoint_async, checkpoint_backend)
-plus ``device`` (default ``cuda``). As in the JAX package,
-``ResNetConfig.fused_1x1`` is not a workload key: ``run_resnet(wl,
-cfg=...)`` takes a config that overrides the one built from ``wl``, as
-``bench.py`` sets it. Declared differences from the JAX workload:
+Data modes (workload key ``data``), as in the JAX workload:
+
+- ``"idx"`` + ``data_dir``: real images from idx files (``train_real``):
+  prepared to 3 channels and upsampled to ``image_size``, augmented
+  (random crop of ``crop_padding``, ``flip``) on the loader's thread,
+  trained by ``epochs`` (steps per epoch from the example count before
+  sharding), checkpointed every ``checkpoint_every`` steps (a non-finite
+  state is refused and the in-flight save fenced), then scored: eval-mode
+  test accuracy, batches padded to ``eval_batch_size`` with the tail
+  masked, reported through ``ctx.report_eval_metrics`` when the context
+  has it and gated by ``target_accuracy``.
+- ``"stream"``: synthetic host batches through the DeviceLoader.
+- ``"fixed"`` (default): one resident synthetic batch.
+
+Workload keys: the JAX workload's (steps, epochs, batch_size, image_size,
+num_classes, lr, variant, data, data_dir, augment, crop_padding, flip,
+target_accuracy, eval_batch_size, device_loop, profile_dir,
+checkpoint_dir, checkpoint_every, checkpoint_keep, checkpoint_async,
+checkpoint_backend) plus ``device`` (default ``cuda``). As in the JAX
+package, ``ResNetConfig.fused_1x1`` is not a workload key: ``run_resnet``
+and ``train_real`` take a config that overrides the one built from
+``wl``, as ``bench.py`` sets it. Declared differences from the JAX
+workload:
 
 - ``data: fixed`` draws its images with
   ``np.random.RandomState(1).standard_normal`` and its labels with
   ``np.random.RandomState(2).randint``, where JAX uses ``PRNGKey(1)`` and
-  ``PRNGKey(2)``; init draws from a ``torch.Generator`` seeded 0.
+  ``PRNGKey(2)``; init draws from a ``torch.Generator`` seeded 0. The
+  loaders' batches are the JAX package's byte for byte; labels arrive as
+  int32 and are widened on the device.
 - ``main`` hands its job context to the checkpointer (depot push, peer
   prefetch, save and restore spans), as the LM workload does; the JAX
   ResNet workload hands it none.
-- Not ported yet, and raising: ``data: stream`` and ``data: idx`` (ROADMAP
-  M5), ``checkpoint_backend: orbax`` (``auto`` means npy), more than one
-  process (M8). The eval scorer (``make_test_accuracy``) comes with the
-  ``idx`` path and the eval role (M9).
+- ``train_real`` times its steps after the first on the host clock and
+  logs each cadence line's loss one step late (no sync a step).
+- Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
+  means npy), more than one process (M8).
 """
 
 from __future__ import annotations
 
 import logging
+import math
+import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
 from tf_operator_tpu_torch.models.resnet import ResNetConfig, init_resnet, resnet_forward
-from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
+from tf_operator_tpu_torch.train.checkpoint import CheckpointManager, WorkloadCheckpointer
+from tf_operator_tpu_torch.train.data import (
+    AugmentedImages,
+    DeviceLoader,
+    MnistIdxDataset,
+    SyntheticImages,
+    local_loader,
+    prepare_classification_images,
+    process_rank,
+)
 from tf_operator_tpu_torch.train.metrics import mfu, resnet_train_flops
 from tf_operator_tpu_torch.train.profile import profile_ctx
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig, TrainState
@@ -87,7 +116,7 @@ class ResNetRun:
     cfg: ResNetConfig
     trainer: Trainer
     state: TrainState
-    batch: tuple
+    batch: Optional[tuple]  # the fixed batch (None for real images)
     loss: float
     losses: List[float]  # every step's loss, warmup included
     timed: int
@@ -95,6 +124,9 @@ class ResNetRun:
     images_per_step: int
     device: torch.device
     flops: float  # model FLOPs a step (resnet_train_flops)
+    data: Optional[dict] = None  # DeviceLoader.stats() of a stream or real run
+    accuracy: Optional[float] = None  # test accuracy of a real run
+    eval_s: Optional[float] = None  # host s of that scoring
 
     @property
     def images_per_s(self) -> Optional[float]:
@@ -107,14 +139,26 @@ class ResNetRun:
         return mfu(self.flops, self.step_s, 1, self.device)
 
 
+def resnet_trainer(wl: dict, cfg: ResNetConfig, device: torch.device) -> Trainer:
+    """The workload's Trainer: SGD (momentum 0.9) at ``lr``, no clip."""
+    return Trainer(
+        loss_fn=lambda params, data, state: resnet_loss(params, data, state, cfg),
+        init_fn=lambda gen: init_resnet(cfg, gen, device),
+        config=TrainerConfig(optimizer="sgd", learning_rate=float(wl.get("lr", 0.1)),
+                             grad_clip=None),
+        device=device,
+    )
+
+
 def run_resnet(wl: dict, device: DeviceLike = None,
                cfg: Optional[ResNetConfig] = None,
                ckpt: Optional[WorkloadCheckpointer] = None) -> ResNetRun:
     """Build the model from ``wl`` (or take ``cfg``), train ``steps`` timed
     steps after one warmup step (from the latest checkpoint, when
-    ``checkpoint_dir`` holds one), and return a ResNetRun. ``device``
-    overrides the workload's ``device`` key (default ``cuda``); ``ckpt``
-    is the checkpointer to use (by default one built from ``wl``)."""
+    ``checkpoint_dir`` holds one) on ``data: fixed`` or ``stream``, and
+    return a ResNetRun. ``device`` overrides the workload's ``device`` key
+    (default ``cuda``); ``ckpt`` is the checkpointer to use (by default one
+    built from ``wl``)."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     steps = max(2, int(wl.get("steps", 20)))
     batch = int(wl.get("batch_size", 128))
@@ -122,25 +166,180 @@ def run_resnet(wl: dict, device: DeviceLike = None,
     classes = int(wl.get("num_classes", 1000))
     cfg = cfg if cfg is not None else resnet_config_from_workload(wl)
     data_mode = wl.get("data", "fixed")
-    if data_mode in ("stream", "idx"):
-        raise NotImplementedError(f"data: {data_mode!r} is not ported yet (ROADMAP M5)")
+    if data_mode not in ("fixed", "stream"):
+        raise ValueError(f"run_resnet takes data: fixed or stream, not {data_mode!r} "
+                         "(idx trains through train_real)")
     ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
-    trainer = Trainer(
-        loss_fn=lambda params, data, state: resnet_loss(params, data, state, cfg),
-        init_fn=lambda gen: init_resnet(cfg, gen, dev),
-        config=TrainerConfig(optimizer="sgd", learning_rate=float(wl.get("lr", 0.1)),
-                             grad_clip=None),
-        device=dev,
-    )
-    data = fixed_batch(batch, image_size, classes, dev)
-    with profile_ctx(wl.get("profile_dir")):
-        state, loss, timed, step_s = ckpt.run_loop(
-            trainer, 0, data, steps, device_loop=int(wl.get("device_loop", 1)))
+    trainer = resnet_trainer(wl, cfg, dev)
+    fixed = fixed_batch(batch, image_size, classes, dev)
+    loader = None
+    if data_mode == "stream":
+        # batch_size is global; local_loader splits it across processes
+        # with rank-distinct data; skip= keeps a resumed incarnation from
+        # replaying the batches its checkpoint's steps consumed
+        loader = local_loader(SyntheticImages, batch, dev, min_examples=64,
+                              image_size=image_size, num_classes=classes,
+                              skip=ckpt.resume_step())
+        data = ((b["image"], b["label"].long()) for b in loader)
+    else:
+        data = fixed
+    try:
+        with profile_ctx(wl.get("profile_dir")):
+            state, loss, timed, step_s = ckpt.run_loop(
+                trainer, 0, data, steps, device_loop=int(wl.get("device_loop", 1)))
+    finally:
+        if loader is not None:
+            loader.close()
     return ResNetRun(
-        cfg=cfg, trainer=trainer, state=state, batch=data, loss=loss,
+        cfg=cfg, trainer=trainer, state=state, batch=fixed, loss=loss,
         losses=[float(x) for x in ckpt.step_losses], timed=timed, step_s=step_s,
         images_per_step=batch, device=dev,
         flops=resnet_train_flops(cfg.flops_per_image(image_size), batch),
+        data=None if loader is None else loader.stats(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# real images: idx files -> prepare -> augment -> DeviceLoader -> train -> score
+# ---------------------------------------------------------------------------
+
+
+def make_test_accuracy(cfg: ResNetConfig):
+    """A reusable eval-mode (running BN statistics) top-1 accuracy scorer:
+    ``score(params, bn_state, images, labels, eval_b=64)``. Each batch of
+    numpy images is padded with zeros to ``eval_b`` (one static shape) and
+    the padded rows' predictions are masked out; batches go to the
+    params' device."""
+
+    @torch.no_grad()
+    def score(params, bn_state, images: np.ndarray, labels: np.ndarray,
+              eval_b: int = 64) -> float:
+        dev = params["head"]["w"].device
+        correct = 0
+        for i in range(0, len(labels), eval_b):
+            x = images[i : i + eval_b]
+            y = labels[i : i + eval_b]
+            if x.shape[0] < eval_b:  # pad to the static shape, mask the tail
+                padding = eval_b - x.shape[0]
+                x = np.concatenate([x, np.zeros((padding,) + x.shape[1:], x.dtype)])
+            logits, _ = resnet_forward(params, bn_state, torch.from_numpy(x).to(dev), cfg,
+                                       train=False)
+            pred = logits.argmax(dim=-1).cpu().numpy()[: len(y)]
+            correct += int((pred == y).sum())
+        return correct / len(labels)
+
+    return score
+
+
+def test_accuracy(params, bn_state, cfg: ResNetConfig, images, labels,
+                  eval_b: int = 64) -> float:
+    """Eval-mode top-1 accuracy, one-shot (repeat callers hold
+    make_test_accuracy's scorer)."""
+    return make_test_accuracy(cfg)(params, bn_state, images, labels, eval_b)
+
+
+def test_split(data_dir: str, image_size: int) -> tuple:
+    """The idx test split prepared for scoring: (images [n, s, s, 3] f32,
+    labels [n] int32)."""
+    test = MnistIdxDataset(data_dir, batch_size=1, split="test", shuffle=False,
+                           process_shard=False)
+    return (prepare_classification_images(test.arrays["image"], image_size),
+            test.arrays["label"])
+
+
+def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] = None,
+               ctx: Any = None) -> ResNetRun:
+    """The real-image path: idx files -> prepare (3 channels, upsample) ->
+    augment -> DeviceLoader -> Trainer -> periodic checkpoints -> eval-mode
+    test accuracy -> ``ctx.report_eval_metrics`` (when the context has it)
+    and the ``target_accuracy`` gate."""
+    dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
+    cfg = cfg if cfg is not None else resnet_config_from_workload(wl)
+    trainer = resnet_trainer(wl, cfg, dev)
+    global_batch = int(wl.get("batch_size", 128))
+    image_size = int(wl.get("image_size", 32))
+    epochs = max(1, int(wl.get("epochs", 5)))
+    target = float(wl.get("target_accuracy", 0.0))
+    rank, n_proc = process_rank()
+    if global_batch % n_proc:
+        raise ValueError(f"batch_size {global_batch} % {n_proc} processes != 0")
+    ds = MnistIdxDataset(wl["data_dir"], global_batch // n_proc, split="train", seed=rank)
+    ds.arrays["image"] = prepare_classification_images(ds.arrays["image"], image_size)
+    source = ds
+    if wl.get("augment", True):
+        source = AugmentedImages(
+            ds, pad=int(wl.get("crop_padding", 4)),
+            # digits and text are orientation-sensitive; natural-image
+            # recipes opt in with flip: true
+            flip=bool(wl.get("flip", False)), seed=rank,
+        )
+    state = trainer.init(0)
+    loader = DeviceLoader(source, dev)
+    # periodic checkpoints, params and BN statistics: the Evaluator role
+    # scores them as they land (workloads/eval.py, model "resnet")
+    ckpt_dir = wl.get("checkpoint_dir")
+    every = int(wl.get("checkpoint_every", 0))
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    # the example count before sharding: the same step count on every rank
+    steps_per_epoch = max(1, ds.global_n // global_batch)
+    total = epochs * steps_per_epoch
+    log_every = max(1, total // 10)
+
+    def checkpoint(step, state, m, wait=False):
+        # a diverged state would hand the Evaluator a poisoned latest
+        # checkpoint: refuse it, and fence the in-flight save before the
+        # caller raises and exits
+        cur = float(m["loss"])
+        if not math.isfinite(cur):
+            log.warning("skipping checkpoint at step %d: loss %r", step, cur)
+            mgr.wait_until_finished()
+            return
+        mgr.save(step, state, wait=wait)
+
+    losses: list = []
+    t0 = None
+    try:
+        for step in range(total):
+            batch = next(loader)
+            state, m = trainer.step(state, (batch["image"], batch["label"].long()))
+            losses.append(m["loss"])
+            if step == 0:
+                float(m["loss"])  # the first step (kernel builds, autotuning) is untimed
+                t0 = time.perf_counter()
+            if mgr and every and (step + 1) % every == 0:
+                checkpoint(step + 1, state, m)
+            if step and (step - 1) % log_every == 0:  # the step before, now done
+                log.info("step %d/%d loss %.4f", step - 1, total, float(losses[step - 1]))
+        loss = float(m["loss"])
+        step_s = (time.perf_counter() - t0) / (total - 1) if total > 1 else None
+        if (total - 1) % log_every == 0:
+            log.info("step %d/%d loss %.4f", total - 1, total, loss)
+        if mgr:
+            checkpoint(total, state, m, wait=True)
+    finally:
+        loader.close()
+    if not math.isfinite(loss):
+        raise AssertionError(f"non-finite training loss {loss}")
+    t1 = time.perf_counter()
+    images, labels = test_split(wl["data_dir"], image_size)
+    acc = test_accuracy(state.params, state.extra, cfg, images, labels,
+                        eval_b=int(wl.get("eval_batch_size", 64)))
+    eval_s = time.perf_counter() - t1
+    log.info("resnet done (real data): test accuracy %.4f over %d examples "
+             "(%d epochs, final loss %.4f)", acc, len(labels), epochs, loss)
+    report = getattr(ctx, "report_eval_metrics", None)
+    if report is not None and int(getattr(ctx, "process_id", 0) or 0) == 0:
+        report(total, {"accuracy": acc})
+    if target and acc < target:
+        raise AssertionError(
+            f"test accuracy {acc:.4f} below target {target} — real-image "
+            "training regressed")
+    return ResNetRun(
+        cfg=cfg, trainer=trainer, state=state, batch=None, loss=loss,
+        losses=[float(x) for x in losses], timed=total - 1, step_s=step_s,
+        images_per_step=global_batch, device=dev,
+        flops=resnet_train_flops(cfg.flops_per_image(image_size), global_batch),
+        data=loader.stats(), accuracy=acc, eval_s=eval_s,
     )
 
 
@@ -153,13 +352,17 @@ def main(ctx) -> None:
     if ckpt.is_complete(steps):
         log.info("already complete (budget %d); nothing to do", steps)
         return
-    run = run_resnet(wl, ckpt=ckpt)
+    if wl.get("data") == "idx":
+        run = train_real(wl, ctx=ctx)
+    else:
+        run = run_resnet(wl, ckpt=ckpt)
     if run.step_s is None:
         log.info("resnet done: loss=%.4f (no timed steps remained)", run.loss)
         return
     m = run.mfu()
     log.info(
         "resnet done: loss=%.4f step=%.2fms imgs/s=%.0f mfu=%s (1 chip, %s)",
-        run.loss, run.step_s * 1e3, run.images_per_s, "n/a" if m is None else f"{m:.3f}",
+        run.loss, run.step_s * 1e3, run.images_per_s,
+        "n/a" if m is None else f"{m:.3f}",
         torch.cuda.get_device_name(run.device) if run.device.type == "cuda" else "cpu",
     )
