@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths (dense, MoE and
-ResNet), its input pipeline and its Evaluator on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's serving and training paths (dense, masked-LM,
+every remat policy, MoE under every dispatch, and ResNet), its input
+pipeline and its Evaluator on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
 
@@ -42,7 +42,8 @@ Training path:
 7. ``flash_check``: the flash forward, dQ and dK/dV kernels against their
    plain versions, element by element (gqa-2048's heads and MHA, causal
    and not, t of 128, 200 and 2048; moe-small's heads, 12 / 12 at d 64,
-   causal, t 512 and 2048; f32 and bf16, a nonzero lse cotangent).
+   causal, t 512 and 2048; bert-base's, the same heads non-causal at t
+   512; f32 and bf16, a nonzero lse cotangent).
 8. ``flash_plant``: copies of the flash sources, each with one planted
    fault (a key tile dropped for the last rows of o or dq, a causal mask
    off by one, a query tile dropped from dK/dV, a K-major depth step or an
@@ -89,6 +90,24 @@ Training path:
     off) through K1-K3, from the numpy-seeded init and batch of
     ``artifacts/torch_vs_jax_gqa2048.json`` (b 1, t 2048): 1 + 3 AdamW
     steps, each loss within the artifact's limit of the JAX package's.
+    ``jax_trajectory_bert``: the same for bert-base's masked LM (b 1, t
+    512, flash non-causal, full remat) from
+    ``artifacts/torch_vs_jax_bert_base.json``, with JAX's fixed mask.
+12c'. ``remat_policies``: gqa-2048 (b 6, t 2048, flash, bf16) from one
+    init and batch under remat none, full, save_mid, dots and
+    save_qkv_mid_mlp, 1 + 3 steps each: K1 1 a layer and step under none
+    and 2 under the others (K2, K3 1), step 0's loss bitwise equal across
+    the policies and the later ones within REMAT_LOSS_ATOL of none's, peak
+    memory full < save_mid, dots, save_qkv_mid_mlp < none; step ms and peak
+    GB each. Then ``train_parity_dots`` and ``train_parity_save``: phase
+    11's checks on ``tiny`` under dots and save_qkv_mid_up.
+12c''. ``bert_train``: ``examples/bert_base_h100.json`` (bert-base's
+    masked LM, b 32, t 512, flash non-causal at d 64, full remat, bf16,
+    AdamW) at full width and depth, 1 + 8 steps through ``run_lm``: K1 24,
+    K2 12, K3 12 a step, finite and falling loss, the fixed mask covering
+    0.15 ± 0.01 of the batch; step time, tokens/s, MFU, peak memory, and
+    2 steps profiled (``bert_train_breakdown``). Then
+    ``train_parity_bert``: phase 11's checks at bert-base width.
 12d. ``data_memmap``: gqa-2048 at full width and depth through ``run_lm``
     with ``data: memmap`` on a corpus of 2^27 uint16 tokens (256 MB,
     written by ``write_token_corpus`` from seed 0, its last 64 windows held
@@ -140,6 +159,17 @@ MoE training path:
 17. ``moe_parity``: moe-small width at 2 layers, t 256: f32 loss, MoE
     metrics and grads on the card against the CPU, and 3 bf16 steps with
     the kernels against 3 with the plain versions.
+17a. ``moe_dispatch``: moe-small as phase 15 under the sort, einsum and
+    ragged dispatches (capacity factor 2.0), 1 + 4 steps each: the flash
+    kernels 2 / 1 / 1 a layer and step and no grouped-matmul launch,
+    finite and falling loss, the drop fraction; step time, device busy
+    over 2 profiled steps and peak memory beside phase 15's gmm run.
+    ``moe_layer_check``: one layer's forward at moe-small's width (8192
+    tokens): sort and einsum at capacity factor 0.5 (choices drop) keep
+    the same choices and agree within KERNEL_ATOL in f32; ragged against
+    gmm (K5, K6) in bf16 within gmm_check's bf16 limit. Then
+    ``train_parity_{sort,einsum,ragged}``: phase 11's checks on
+    ``tiny-moe`` (top-2, capacity factor 0.5) under each dispatch.
 18. ``gmm_timing``: the four kernels at the moe_train shapes beside their
     bounds, their plain versions and ``torch._grouped_mm`` on the same
     expert groups (or one ``torch.mm`` of the same FLOPs where the card's
@@ -233,16 +263,19 @@ from tf_operator_tpu_torch.compat import tree_map
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.resnet import ResNetConfig, init_resnet
 from tf_operator_tpu_torch.models.transformer import (
+    _swiglu_experts,
     init_transformer,
     init_transformer_numpy,
     lm_loss,
     lm_loss_and_metrics,
+    mlm_mask,
     preset_from_workload,
 )
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.ops import fused_linear_stats as fls
 from tf_operator_tpu_torch.ops import grouped_matmul as gm
+from tf_operator_tpu_torch.parallel import moe as moe_mod
 from tf_operator_tpu_torch.parallel.moe import block_layout
 from tf_operator_tpu_torch.serve.engine import (
     ServeConfig,
@@ -321,6 +354,32 @@ EVAL_CE_ATOL = 1e-4
 REAL_SPEC = REPO / "examples" / "resnet_real_idx_h100.json"
 REAL_TRAIN, REAL_TEST = 2048, 512
 RESNET_REAL_OVERRIDES = {"epochs": 1, "target_accuracy": 0.0}
+# The BERT-base masked-LM job (examples/bert_base_h100.json: b 32, t 512,
+# flash non-causal at d 64, the preset's full remat) at full width and
+# depth, 1 warmup + 8 timed steps, random weights (seed 0); the loss's
+# fixed mask must mask MLM_MASK_RATE of the batch within MLM_SHARE_ATOL.
+BERT_SPEC = REPO / "examples" / "bert_base_h100.json"
+BERT_OVERRIDES = {"steps": 8, "remat": "full", "lr": 3e-4, "data": "fixed"}
+MLM_MASK_RATE, MLM_SHARE_ATOL = 0.15, 0.01
+# remat_policies: gqa-2048 (b 6, t 2048, flash, bf16) from one init and
+# batch under each policy, 1 + 3 steps. The policies change what the
+# backward stores and recomputes, never a forward value: step 0's loss is
+# bitwise equal across them. Later steps part by rounding alone: a
+# region boundary changes the order in which the backward adds the same
+# bf16 activation grads (a few bf16 ulps of some grads), less than the
+# kernels against their plain versions, which also round P and dS
+# elsewhere and whose 3 bf16 steps train_parity holds to
+# PARITY_BF16_LOSS_ATOL (2e-2, 0.2% of the loss); the same limit here.
+REMAT_POLICIES = ("none", "full", "save_mid", "dots", "save_qkv_mid_mlp")
+REMAT_STEPS = 4
+REMAT_LOSS_ATOL = 2e-2
+# moe_dispatch: moe-small (examples/moe_small_h100.json) under the capacity
+# dispatches at its capacity factor (2.0) and under ragged, 1 + 4 steps
+# each; the one-layer check at full width runs sort and einsum at
+# MOE_CHECK_CF, where choices drop.
+MOE_DISPATCHES = ("sort", "einsum", "ragged")
+MOE_DISPATCH_STEPS = 4
+MOE_CHECK_CF = 0.5
 # The MoE training job (examples/moe_small_h100.json) at full width and
 # depth, 1 warmup + 8 timed steps, random weights (seed 0).
 MOE_WL = {
@@ -1103,11 +1162,13 @@ def phase_kernel_timing(cfg):
 
 
 # (h, h_kv, d, ts, causal modes) of flash_check: gqa-2048's heads and MHA
-# on and off the tile grid, and moe-small's (d 64) at its t and at 2048
+# on and off the tile grid, moe-small's (d 64) at its t and at 2048, and
+# bert-base's (the same heads, non-causal) at its t
 FLASH_CHECK_CASES = (
     (16, 4, 128, (128, 200, 2048), (True, False)),
     (16, 16, 128, (128, 200, 2048), (True, False)),
     (12, 12, 64, (512, 2048), (True,)),
+    (12, 12, 64, (512,), (False,)),  # bert-base's masked LM
 )
 
 
@@ -1524,6 +1585,195 @@ def phase_train_parity(dev, wl=TRAIN_WL, per_layer=DENSE_PER_LAYER, phase="train
           "bf16_first_step_abs_diff": first_err,
           "bf16_first_step_atol": PARITY_BF16_FIRST_STEP_ATOL,
           "cpu_seconds": cpu_s})
+
+
+# train_parity on the paths this slice added: the masked LM at bert-base
+# width, and on tiny configs a remat mode without a names split (dots), a
+# save: set, and the three MoE dispatches (top-2 at capacity factor 0.5,
+# where choices drop; the MoE bf16 limit, as moe_parity's).
+TINY_PARITY_WL = {"preset": "tiny", "attn": "flash", "lr": 3e-4, "data": "fixed"}
+TINY_MOE_PARITY_WL = {**TINY_PARITY_WL, "preset": "tiny-moe", "remat": "full",
+                      "moe_top_k": 2, "capacity_factor": MOE_CHECK_CF}
+REMAT_PARITY = (("train_parity_dots", {**TINY_PARITY_WL, "remat": "dots"}),
+                ("train_parity_save", {**TINY_PARITY_WL, "remat": "save_qkv_mid_up"}))
+DISPATCH_PARITY = tuple((f"train_parity_{impl}", {**TINY_MOE_PARITY_WL, "moe_dispatch": impl})
+                        for impl in MOE_DISPATCHES)
+
+
+def bert_wl() -> dict:
+    """examples/bert_base_h100.json's workload with BERT_OVERRIDES."""
+    return {**json.loads(BERT_SPEC.read_text())["spec"]["workload"], **BERT_OVERRIDES}
+
+
+def phase_bert_train(smi, dev="cuda"):
+    """bert-base's masked LM at full width and depth through run_lm (the
+    train phase's checks: K1 2·L, K2 and K3 L a step under full remat,
+    finite and falling loss), the fixed mask's share of the batch within
+    MLM_SHARE_ATOL of MLM_MASK_RATE, then 2 steps profiled."""
+    wl = bert_wl()
+    check(not preset_from_workload(wl).causal, "bert_train: the spec is not bidirectional")
+    share = float(mlm_mask((wl["batch_size"], wl["seq_len"]), MLM_MASK_RATE,
+                           torch.device(dev)).float().mean())
+    check(abs(share - MLM_MASK_RATE) <= MLM_SHARE_ATOL,
+          f"bert_train: the fixed mask covers {share} of the batch")
+    run, counts = phase_train(smi, wl, dev, phase="bert_train")
+    emit({"phase": "bert_mask", "masked_share": share, "mask_rate": MLM_MASK_RATE,
+          "share_atol": MLM_SHARE_ATOL, "masked_positions": round(
+              share * wl["batch_size"] * wl["seq_len"])})
+    phase_train_breakdown(run, smi, phase="bert_train_breakdown")
+    return counts
+
+
+def phase_remat_policies(smi, dev="cuda"):
+    """gqa-2048 (TRAIN_WL's shape) from one init and batch under each of
+    REMAT_POLICIES, 1 + 3 steps through the Trainer: step ms (the 3 after
+    the first, host clock with a sync), peak GB, K1-K3 launches a step,
+    and the device busy time of one more step under torch.profiler.
+    Checks: K1 L a step under none and 2·L under the others, K2 and K3 L;
+    step 0's loss bitwise equal across the policies and the later ones
+    within REMAT_LOSS_ATOL of none's; peak memory full < every other
+    policy but none < none."""
+    cfg0 = preset_from_workload(TRAIN_WL)
+    params = init_transformer(cfg0, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = fixed_tokens(TRAIN_WL["batch_size"], TRAIN_WL["seq_len"], cfg0.vocab, dev)
+    L = cfg0.n_layers
+    out = {}
+    for remat in REMAT_POLICIES:
+        cfg = replace(cfg0, remat=remat)
+        trainer = Trainer(loss_fn=lambda p, b, e, cfg=cfg: lm_loss(p, b, cfg), init_fn=None,
+                          config=TrainerConfig(learning_rate=TRAIN_WL["lr"]), device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.state_from_params(tree_map(lambda x: x.clone(), params))
+        reset_counts()
+        losses, step_s = [], []
+        for _ in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, tokens)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        counts = read_counts()
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"] = trainer.step(holder["state"], tokens)[0]
+
+        busy_ms = sum(r[2] for r in profile_kernels(one_step))
+        state = holder.pop("state")
+        fwd_per_layer = 1 if remat == "none" else 2
+        want = {name: 0 for name in COUNTERS}
+        want.update(flash_fwd_launches=fwd_per_layer * L * REMAT_STEPS,
+                    flash_bwd_dq_launches=L * REMAT_STEPS, flash_bwd_dkv_launches=L * REMAT_STEPS)
+        check(counts == want, f"remat_policies {remat}: launches {counts} != {want}")
+        step_ms = statistics.mean(step_s[1:]) * 1e3
+        out[remat] = {"losses": losses, "step_ms": step_ms,
+                      "tokens_per_s": TRAIN_WL["batch_size"] * TRAIN_WL["seq_len"] / step_ms * 1e3,
+                      "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / step_ms,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "k1_per_layer_step": counts["flash_fwd_launches"] / L / REMAT_STEPS,
+                      "launches": counts}
+        del state, trainer
+    base = out["none"]["losses"]
+    for remat, r in out.items():
+        check(r["losses"][0] == base[0], f"remat_policies: step 0 loss under {remat} "
+                                         f"{r['losses'][0]!r} != none's {base[0]!r}")
+        r["max_abs_diff_vs_none"] = max(abs(a - b) for a, b in zip(r["losses"], base))
+        check(all(np.isfinite(r["losses"])) and r["max_abs_diff_vs_none"] <= REMAT_LOSS_ATOL,
+              f"remat_policies: {remat} losses {r['losses']} vs none {base}")
+    peak = {k: r["peak_mem_gb"] for k, r in out.items()}
+    middle = [k for k in REMAT_POLICIES if k not in ("none", "full")]
+    check(all(peak["full"] < peak[k] < peak["none"] for k in middle),
+          f"remat_policies: peak GB not ordered full < {middle} < none: {peak}")
+    emit({"phase": "remat_policies", "preset": TRAIN_WL["preset"],
+          "batch": TRAIN_WL["batch_size"], "seq": TRAIN_WL["seq_len"], "attn": "flash",
+          "dtype": str(cfg0.dtype), "steps": REMAT_STEPS, "loss_atol": REMAT_LOSS_ATOL,
+          "policies": out, "card": smi})
+    return out
+
+
+def moe_layer_case(dev, tokens=8192, d=768, f=3072, n_experts=8, dtype=torch.float32):
+    """One MoE layer's inputs at moe-small's width: x [T, d], router logits
+    [T, E] from a random router, SwiGLU experts at init scale."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    x = randn(tokens, d)
+    logits = (x.float() @ randn(d, n_experts, scale=d ** -0.5).float()).to(dtype)
+    experts = {"w_gate": randn(n_experts, d, f, scale=d ** -0.5),
+               "w_up": randn(n_experts, d, f, scale=d ** -0.5),
+               "w_down": randn(n_experts, f, d, scale=f ** -0.5)}
+    return x, logits, experts
+
+
+def phase_moe_layer_check(dev="cuda"):
+    """One MoE layer's forward at moe-small's width (8192 tokens, top-1):
+    sort and einsum at capacity factor MOE_CHECK_CF in f32 (TF32 off) keep
+    the same choices and give outputs within KERNEL_ATOL (the same
+    products on the same inboxes; only zeros are summed in other orders);
+    ragged (cuBLAS a product per expert) against gmm (K5, K6) in bf16
+    within gmm_check's bf16 limit (each rounds to bf16 at other points)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, logits, experts = moe_layer_case(dev)
+    cap = moe_mod.expert_capacity(MOE_CHECK_CF, 1, x.shape[0], logits.shape[1])
+    slot = moe_mod._route_sparse(x, logits, cap)[0]
+    dispatch = moe_mod._route(x, logits, cap)[0] != 0
+    e, c = slot[:, 0] // cap, slot[:, 0] % cap
+    kept = slot[:, 0] < logits.shape[1] * cap
+    from_slot = torch.zeros_like(dispatch)
+    from_slot[kept.nonzero()[:, 0], e[kept], c[kept]] = True
+    check(torch.equal(from_slot, dispatch), "moe_layer_check: sort and einsum keep other choices")
+    outs = {impl: moe_mod.moe_apply(x, logits, experts, _swiglu_experts,
+                                    capacity_factor=MOE_CHECK_CF, dropped="zero",
+                                    dispatch_impl=impl, return_stats=True)
+            for impl in ("sort", "einsum")}
+    se_err = float((outs["sort"][0] - outs["einsum"][0]).abs().max())
+    drop = float(outs["sort"][1]["drop_frac"])
+    check(drop > 0 and drop == float(outs["einsum"][1]["drop_frac"]),
+          f"moe_layer_check: drop fractions {drop} vs {float(outs['einsum'][1]['drop_frac'])}")
+    check(se_err <= KERNEL_ATOL, f"moe_layer_check: sort vs einsum max abs err {se_err}")
+    del outs, dispatch, from_slot
+    x16, logits16 = x.to(torch.bfloat16), logits.to(torch.bfloat16)
+    want = moe_mod.moe_apply(x16, logits16, experts, dispatch_impl="gmm").float()
+    got = moe_mod.moe_apply(x16, logits16, experts, dispatch_impl="ragged",
+                            ragged_expert_fn=moe_mod.ragged_swiglu).float()
+    diff = (got - want).abs()
+    limit = gmm_limit(want, torch.bfloat16, (-1,))
+    check(bool((diff <= limit).all()), f"moe_layer_check: ragged vs gmm max abs err "
+                                       f"{float(diff.max())}")
+    out = {"phase": "moe_layer_check", "tokens": x.shape[0], "d": x.shape[1],
+           "experts": logits.shape[1], "capacity_factor": MOE_CHECK_CF, "capacity": cap,
+           "drop_frac": drop, "sort_vs_einsum_max_abs_err": se_err,
+           "sort_vs_einsum_atol": KERNEL_ATOL, "ragged_vs_gmm_max_abs_err": float(diff.max()),
+           "ragged_vs_gmm_worst_err_over_limit": float((diff / limit).max())}
+    emit(out)
+    return out
+
+
+def phase_moe_dispatch(smi, yardstick, dev="cuda"):
+    """moe-small at full width and depth (b 16, t 512, full remat) through
+    run_lm under each of MOE_DISPATCHES, 1 + 4 steps: the train phase's
+    checks (K1 2·L, K2 and K3 L a step, no grouped-matmul launch, finite
+    and falling loss) and the router line (drop_frac), then 2 steps
+    profiled; ``yardstick`` is moe_train's gmm run (step ms, busy, peak)."""
+    out = {"gmm": yardstick}
+    for impl in MOE_DISPATCHES:
+        torch.cuda.empty_cache()
+        wl = {**MOE_WL, "steps": MOE_DISPATCH_STEPS, "moe_dispatch": impl}
+        run, counts = phase_train(smi, wl, dev, phase=f"moe_dispatch_{impl}")
+        bd = phase_train_breakdown(run, smi, phase=f"moe_dispatch_{impl}_breakdown")
+        out[impl] = {"step_ms": run.step_s * 1e3, "tokens_per_s": run.tokens_per_s,
+                     "busy_ms": bd["device_busy_ms_per_step"],
+                     "idle_share": bd["device_idle_share"],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "drop_frac": router_metrics(run)["drop_frac"], "launches": counts}
+        del run
+    emit({"phase": "moe_dispatch", "preset": MOE_WL["preset"], "batch": MOE_WL["batch_size"],
+          "seq": MOE_WL["seq_len"], "remat": MOE_WL["remat"], "steps": MOE_DISPATCH_STEPS,
+          "dispatches": out, "card": smi})
+    return out
 
 
 def leaves_with_names(tree, prefix=""):
@@ -1971,42 +2221,48 @@ def phase_operator_resume(smi):
           "incarnation_s": [s1, s2], "uninterrupted_s": s3, "card": smi})
 
 
-def phase_jax_trajectory(dev, smi):
-    """gqa-2048 at full width and depth in f32 (TF32 off) through K1-K3,
-    from the numpy-seeded init and batch that the artifact records: 1 + 3
-    AdamW steps, each loss within the artifact's limit of the JAX
-    package's (computed on a CPU, tests/test_torch_trajectory.py)."""
-    art = json.loads((REPO / trajectory.ARTIFACT).read_text())
-    cfg = trajectory.trajectory_config(art["preset"])
+def phase_jax_trajectory(dev, smi, artifact=trajectory.ARTIFACT, phase="jax_trajectory"):
+    """A model at full width and depth in f32 (TF32 off) through K1-K3,
+    from the numpy-seeded init and batch that ``artifact`` records (and,
+    for a masked LM, JAX's mask by its positions), the port's remat as the
+    artifact names it: 1 + 3 AdamW steps, each loss within the artifact's
+    limit of the JAX package's (computed on a CPU,
+    tests/test_torch_trajectory.py)."""
+    art = json.loads((REPO / artifact).read_text())
+    cfg = trajectory.trajectory_config(art["preset"], remat=art["port"]["remat"])
     params = init_transformer_numpy(cfg, art["init_seed"])
     head = params["embed"].reshape(-1)[:8].tolist()
-    check(head == art["init_stream_head"], f"jax_trajectory: init stream {head} differs")
+    check(head == art["init_stream_head"], f"{phase}: init stream {head} differs")
     sums = {"embed": float(np.sum(params["embed"], dtype=np.float64)),
             **{f"layers.{k}": float(np.sum(v, dtype=np.float64))
                for k, v in params["layers"].items()}}
     bad = [k for k, v in art["init_sums"].items() if not math.isclose(sums[k], v, rel_tol=1e-9,
                                                                          abs_tol=1e-6)]
-    check(not bad, f"jax_trajectory: init sums differ: {bad}")
+    check(not bad, f"{phase}: init sums differ: {bad}")
     tokens = trajectory.trajectory_tokens(cfg.vocab, art["batch_size"], art["seq_len"],
                                           art["batch_seed"])
     check(tokens[0, :16].tolist() == art["first_batch_head"]
           and int(tokens.sum(dtype=np.int64)) == art["first_batch_sum"],
-          "jax_trajectory: the batch differs from the artifact's")
+          f"{phase}: the batch differs from the artifact's")
+    mask = None if cfg.causal else trajectory.trajectory_mask(tokens.shape,
+                                                              art["mask_positions"])
     torch.cuda.empty_cache()
     reset_counts()
-    losses = trajectory.port_trajectory(cfg, params, tokens, art["steps"], device=dev)
+    losses = trajectory.port_trajectory(cfg, params, tokens, art["steps"], device=dev, mask=mask)
     counts = read_counts()
     want = {name: DENSE_PER_LAYER.get(name, 0) * cfg.n_layers * art["steps"]
             for name in COUNTERS}
-    check(counts == want, f"jax_trajectory launches {counts} != {want}")
+    check(counts == want, f"{phase} launches {counts} != {want}")
     diffs = [abs(a - b) for a, b in zip(losses, art["jax_losses"])]
     check(max(diffs) <= art["card_limit"],
-          f"jax_trajectory: losses {losses} vs JAX {art['jax_losses']} "
+          f"{phase}: losses {losses} vs JAX {art['jax_losses']} "
           f"(limit {art['card_limit']})")
-    emit({"phase": "jax_trajectory", "preset": art["preset"], "dtype": "float32",
+    emit({"phase": phase, "preset": art["preset"], "dtype": "float32",
           "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": art["batch_size"],
-          "seq": art["seq_len"], "losses": losses, "jax_losses": art["jax_losses"],
-          "abs_diff": diffs, "limit": art["card_limit"], "launches": counts, "card": smi})
+          "seq": art["seq_len"], "causal": cfg.causal, "remat": cfg.remat,
+          "masked_positions": None if mask is None else int(mask.sum()), "losses": losses,
+          "jax_losses": art["jax_losses"], "abs_diff": diffs, "limit": art["card_limit"],
+          "launches": counts, "card": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -3253,6 +3509,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("operator_resume", phase_operator_resume, smi)
     run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
+    run_phase("jax_trajectory_bert", phase_jax_trajectory, dev, smi, trajectory.BERT_ARTIFACT,
+              phase="jax_trajectory_bert")
+    # the remat policies at the north star's shape, and the other new paths
+    # at small size against the CPU
+    run_phase("remat_policies", phase_remat_policies, smi, dev)
+    torch.cuda.empty_cache()
+    for name, wl in REMAT_PARITY:
+        run_phase(name, phase_train_parity, dev, wl, phase=name)
+    # BERT-base's masked LM: K1-K3 non-causal at d 64
+    bert_counts = run_phase("bert_train", phase_bert_train, smi, dev)
+    torch.cuda.empty_cache()
+    run_phase("train_parity_bert", phase_train_parity, dev, bert_wl(),
+              phase="train_parity_bert")
     # the input pipeline and the Evaluator on the same model
     memmap_wl, corpus_dir = run_phase("data_memmap", phase_data_memmap, smi, dev)
     try:
@@ -3266,12 +3535,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_run, moe_counts = run_phase("moe_train", phase_train, smi, MOE_WL,
                                     per_layer=MOE_PER_LAYER, phase="moe_train")
-    run_phase("moe_train_breakdown", phase_train_breakdown, moe_run, smi,
-              phase="moe_train_breakdown")
+    moe_bd = run_phase("moe_train_breakdown", phase_train_breakdown, moe_run, smi,
+                       phase="moe_train_breakdown")
+    gmm_yardstick = {"step_ms": moe_run.step_s * 1e3, "tokens_per_s": moe_run.tokens_per_s,
+                     "busy_ms": moe_bd["device_busy_ms_per_step"],
+                     "idle_share": moe_bd["device_idle_share"], "drop_frac": 0.0}
     del moe_run
     torch.cuda.empty_cache()
     run_phase("moe_parity", phase_train_parity, dev, MOE_WL, per_layer=MOE_PER_LAYER,
               phase="moe_parity", bf16_atol=PARITY_MOE_BF16_LOSS_ATOL)
+    # the other MoE dispatches: sort, einsum, ragged
+    run_phase("moe_dispatch", phase_moe_dispatch, smi, gmm_yardstick, dev)
+    torch.cuda.empty_cache()
+    run_phase("moe_layer_check", phase_moe_layer_check, dev)
+    torch.cuda.empty_cache()
+    for name, wl in DISPATCH_PARITY:
+        run_phase(name, phase_train_parity, dev, wl, phase=name,
+                  bf16_atol=PARITY_MOE_BF16_LOSS_ATOL)
     gt = run_phase("gmm_timing", phase_gmm_timing, smi)
 
     # ResNet training path: ResNet-50
@@ -3322,6 +3602,8 @@ def main() -> int:
             "source": f"tf_operator_tpu_torch/ops/csrc/{src}",
             "replaces": f"tf_operator_tpu/ops/flash_attention.py:{line}",
             "launches": train_counts[counter],
+            # the masked LM's run (non-causal, d 64)
+            "bert_train_launches": bert_counts[counter],
             # bf16 (the path's type) against the f32 plain version on the same
             # inputs, over every flash_check case and the train shape; the f32
             # instantiation's error beside it

@@ -12,6 +12,9 @@ torch = pytest.importorskip("torch")
 
 from chip_smoke import (  # noqa: E402
     DECODE_PLANTS,
+    PARITY_GRAD_REL,
+    PARITY_LOSS_ATOL,
+    PARITY_MOE_METRIC_ATOL,
     FLASH_PLANTS,
     FLS_PLANTS,
     FLS_STATS_C,
@@ -31,10 +34,16 @@ from chip_smoke import (  # noqa: E402
     gmm_limit,
     gmm_planted,
     gmm_within,
+    leaves_with_names,
     paged_case,
     planted,
 )
-from tf_operator_tpu_torch.models.transformer import init_transformer, preset  # noqa: E402
+from tf_operator_tpu_torch.compat import tree_map  # noqa: E402
+from tf_operator_tpu_torch.models.transformer import (  # noqa: E402
+    init_transformer,
+    lm_loss_and_metrics,
+    preset,
+)
 from tf_operator_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from tf_operator_tpu_torch.ops import fused_linear_stats as fls  # noqa: E402
 from tf_operator_tpu_torch.ops import grouped_matmul as gm  # noqa: E402
@@ -149,7 +158,7 @@ def test_tiny_engine_card_matches_cpu(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,t,h,h_kv,d,causal", [
     (2, 200, 16, 4, 128, True), (1, 128, 16, 16, 128, False), (2, 77, 4, 2, 64, True),
-    (1, 33, 2, 1, 16, False),
+    (1, 33, 2, 1, 16, False), (2, 512, 12, 12, 64, False),  # the last: bert-base's heads
 ])
 def test_flash_kernels_match_plain(dev, dtype, b, t, h, h_kv, d, causal):
     """K1-K3 against their plain versions: GQA and MHA, causal and not, t
@@ -407,3 +416,38 @@ def test_device_loader_stages_on_its_own_stream(dev):
     next(loader)
     loader.close()
     assert not loader._thread.is_alive() and loader.copy_stream.query()
+
+
+@pytest.mark.parametrize("over", [
+    {"preset": "tiny", "causal": False},  # the masked LM: K1-K3 non-causal
+    {"preset": "tiny", "remat": "dots"},
+    {"preset": "tiny", "remat": "save_qkv_mid_up"},
+    {"preset": "tiny-moe", "moe_dispatch": "sort", "moe_top_k": 2, "capacity_factor": 0.5},
+], ids=["mlm", "dots", "save_qkv_mid_up", "sort"])
+def test_train_step_card_matches_cpu(dev, over):
+    """One f32 loss and backward of a tiny model on the card (K1-K3) and on
+    the CPU from the same params and tokens: the loss and metrics within
+    train_parity's limits, each grad within PARITY_GRAD_REL of its
+    largest; K1 2 a layer (the remat modes recompute it), K2 and K3 1."""
+    name = over.pop("preset")
+    cfg = preset(name, dtype=torch.float32, attn_impl="flash", **{"remat": "full", **over})
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab, (2, 64)))
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda x: x.detach().to(where).requires_grad_(True), params)
+        before = (fa.flash_fwd_launches, fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+        loss, metrics = lm_loss_and_metrics(p, tokens.to(where), cfg)
+        loss.backward()
+        out[str(where)] = (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()},
+                           tree_map(lambda x: x.grad.cpu(), p))
+    launches = (fa.flash_fwd_launches - before[0], fa.flash_bwd_dq_launches - before[1],
+                fa.flash_bwd_dkv_launches - before[2])
+    assert launches == (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    (card_loss, card_m, card_g), (cpu_loss, cpu_m, cpu_g) = out[str(dev)], out["cpu"]
+    assert abs(card_loss - cpu_loss) <= PARITY_LOSS_ATOL
+    for k in card_m:
+        assert abs(card_m[k] - cpu_m[k]) <= PARITY_MOE_METRIC_ATOL, (k, card_m, cpu_m)
+    for (k, g), (_, w) in zip(leaves_with_names(card_g), leaves_with_names(cpu_g)):
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert err <= PARITY_GRAD_REL, (k, err)

@@ -2,7 +2,10 @@
 
 - A tiny LM trained and checkpointed by the JAX package (npy backend) is
   scored by both ``eval.main``s over one memmap holdout: every saved step,
-  oldest first, each CE within 1e-5 in f32.
+  oldest first, each CE within 1e-5 in f32; the same for a bidirectional
+  (BERT-class, masked-LM) tiny model, scored with JAX's fixed mask (the
+  port's ``mlm_mask`` pointed at ``bernoulli(PRNGKey(0), ...)`` for the
+  test: the port's own draw is numpy's, a declared difference).
 - A tiny ResNet trained and checkpointed by the JAX package on an 8x8 idx
   fixture upsampled to 32 is scored by both: equal accuracy.
 - The refusals raise as JAX's do; a step that vanishes mid-scan is
@@ -71,10 +74,9 @@ def _scores(module, ctx, report):
     return json.loads(report.read_text())
 
 
-@pytest.fixture
-def lm_run(tmp_path, f32):
-    """A JAX-trained tiny LM checkpointed at steps 2 and 4, and a corpus."""
-    cfg = jt.preset("tiny")
+def _jax_lm_checkpoints(tmp_path, cfg):
+    """Train the JAX package's ``cfg`` on a memmap corpus, checkpointed at
+    steps 2 and 4; returns (tmp_path, the corpus)."""
     trainer = JaxTrainer(MESH, loss_fn=lambda p, tok, extra: jt.lm_loss(p, tok, cfg),
                          init_fn=lambda k: jt.init_transformer(k, cfg),
                          config=JaxTrainerConfig(optimizer="adamw", learning_rate=1e-3))
@@ -88,6 +90,12 @@ def lm_run(tmp_path, f32):
         if s in (2, 4):
             mgr.save(s, state, wait=True)
     return tmp_path, corpus
+
+
+@pytest.fixture
+def lm_run(tmp_path, f32):
+    """A JAX-trained tiny LM checkpointed at steps 2 and 4, and a corpus."""
+    return _jax_lm_checkpoints(tmp_path, jt.preset("tiny"))
 
 
 def test_lm_scores_match_jax_over_memmap_holdout(lm_run, caplog):
@@ -106,6 +114,22 @@ def test_lm_scores_match_jax_over_memmap_holdout(lm_run, caplog):
     assert [m.split()[2] for m in msgs if m.startswith("eval: checkpoint")] == \
         ["step=2", "step=4"]
     assert any(m.startswith("eval done: 2 checkpoints scored") for m in msgs)
+
+
+def test_mlm_scores_match_jax_with_the_fixed_mask(tmp_path, f32, monkeypatch):
+    tmp_path, corpus = _jax_lm_checkpoints(tmp_path, jt.preset("tiny", causal=False))
+    monkeypatch.setattr(tt, "mlm_mask", lambda shape, rate, device: torch.from_numpy(
+        np.array(jax.random.bernoulli(jax.random.PRNGKey(0), rate, shape))).to(device))
+    wl = {**LM_WL, "causal": False, "checkpoint_dir": str(tmp_path / "ckpt"),
+          "data": "memmap", "corpus": corpus, "seq_len": 32, "holdout_windows": 8,
+          "train_steps": 4}
+    want = _scores(jeval, JobContext(workload={**wl, "eval_report": str(tmp_path / "j.json")}),
+                   tmp_path / "j.json")
+    got = _scores(teval, SimpleNamespace(workload={**wl, "eval_report": str(tmp_path / "p.json")}),
+                  tmp_path / "p.json")
+    assert list(got) == list(want) == ["2", "4"]
+    np.testing.assert_allclose([got[k] for k in got], [want[k] for k in want], atol=1e-5, rtol=0)
+    assert np.isfinite(list(got.values())).all()
 
 
 def _port_checkpoints(ckpt_dir, steps=(2, 4), pause=0.0):

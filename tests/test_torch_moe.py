@@ -235,12 +235,17 @@ def test_unported_moe_paths_raise():
     x, logits = torch.zeros(8, 4), torch.zeros(8, 2)
     experts = {"w_gate": torch.zeros(2, 4, 8), "w_up": torch.zeros(2, 4, 8),
                "w_down": torch.zeros(2, 8, 4)}
-    for impl in ("sort", "einsum", "ragged"):
-        with pytest.raises(NotImplementedError, match="M11"):
-            moe.moe_apply(x, logits, experts, dispatch_impl=impl)
     mesh = type("Mesh", (), {"axis_names": ("ep",), "shape": {"ep": 2}})()
-    with pytest.raises(NotImplementedError, match="M8"):
-        moe.moe_apply(x, logits, experts, None, mesh, dispatch_impl="gmm")
+    for impl in ("sort", "einsum", "ragged", "gmm"):
+        with pytest.raises(NotImplementedError, match="M8, then M11"):
+            moe.moe_apply(x, logits, experts, None, mesh, dispatch_impl=impl)
+    with pytest.raises(ValueError, match="needs an expert_fn"):
+        moe.moe_apply(x, logits, experts, dispatch_impl="sort")
+    with pytest.raises(ValueError, match="needs a ragged_expert_fn"):
+        moe.moe_apply(x, logits, experts, dispatch_impl="ragged")
+    with pytest.raises(ValueError, match="unknown dropped mode"):
+        moe.moe_apply(x, logits, experts, lambda wp, t: t, dispatch_impl="einsum",
+                      dropped="drop")
     with pytest.raises(ValueError, match="SwiGLU"):
         moe.moe_apply(x, logits, {"w": x}, dispatch_impl="gmm")
     with pytest.raises(ValueError, match="unknown dispatch_impl"):

@@ -99,11 +99,14 @@ def test_flash_forward_runs_per_remat_mode(monkeypatch, remat, fwd_per_layer):
 def test_unported_modes_raise():
     p = tt.init_transformer(tt.preset("tiny"), torch.Generator().manual_seed(0), "cpu")
     tok = torch.zeros(1, 4, dtype=torch.long)
-    for over, match in (({"remat": "save_qkv"}, "M2"), ({"remat": "dots"}, "M2"),
-                        ({"attn_impl": "ring"}, "M12"), ({"causal": False}, "M2"),
-                        ({"n_experts": 4}, "M11"), ({"pp_microbatches": 2}, "M13")):
+    for over, match in (({"attn_impl": "ring"}, "M12"), ({"attn_impl": "ulysses"}, "M12"),
+                        ({"pp_microbatches": 2}, "M13")):
         with pytest.raises(NotImplementedError, match=match):
             tt.lm_loss(p, tok, tt.preset("tiny", **over))
+    with pytest.raises(NotImplementedError, match="M8"):
+        tt.lm_loss(p, tok, tt.preset("tiny"), mesh=object())
+    with pytest.raises(ValueError, match="unknown remat mode"):
+        tt.lm_loss(p, tok, tt.preset("tiny", remat="save_everything"))
     with pytest.raises(ValueError, match="unknown activation"):
         tt.remat_save_names("save:resid_mld")
     assert tt.remat_save_names("save:resid_mid") == ("resid_mid",)

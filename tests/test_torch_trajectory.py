@@ -16,6 +16,13 @@ numpy-seeded init and batch, in f32.
   tests/test_torch_trajectory.py -m slow -k generate``; it takes ~20 GB.
 - ``test_artifact_schema_and_seeds``: the artifact has its keys, and its
   seeds reproduce its first batch and the head of its init's stream.
+- ``test_generate_bert_base_artifact`` (``slow``, run by hand, ~3 GB):
+  the same for bert-base's masked LM at b 1, t 512 (JAX: dense attention,
+  full remat, its fixed ``PRNGKey(0)`` mask, recorded by its positions;
+  the port on the card: flash non-causal, full remat, that mask), into
+  ``artifacts/torch_vs_jax_bert_base.json``; ``-k generate_bert``.
+- ``test_bert_artifact_schema_and_mask``: its keys and seeds, and its mask
+  is JAX's ``bernoulli(PRNGKey(0), 0.15, (1, 512))``.
 - ``test_loader_trajectory_matches_jax``: ``run_lm`` with ``data: stream``
   and ``memmap`` (f32, from the numpy init) against the JAX Trainer over
   the JAX package's loader: 1 + 3 losses within 1e-5.
@@ -94,16 +101,22 @@ def _stream_head(seed, n=8):
             * np.float32(0.02)).tolist()
 
 
-@pytest.mark.slow
-def test_generate_gqa2048_artifact():
-    name, batch, seq = "gqa-2048", 1, 2048
-    cfg = tj.trajectory_config(name)
+def _init_sums(params):
+    sums = {"embed": float(np.sum(params["embed"], dtype=np.float64))}
+    sums.update({f"layers.{k}": float(np.sum(v, dtype=np.float64))
+                 for k, v in params["layers"].items()})
+    return sums
+
+
+def _generate(name, batch, seq, port, cuts, path, **extra):
+    """JAX's losses from the numpy init and batch, and from the init nudged
+    by NUDGE_REL (the spread sets the card's limit), written to ``path``
+    with the seeds and cuts; ``port`` names the port's side on the card."""
+    cfg = tj.trajectory_config(name, **port)
     t0 = time.time()
     params = init_transformer_numpy(cfg, INIT_SEED)
     tokens = tj.trajectory_tokens(cfg.vocab, batch, seq, BATCH_SEED)
-    init_sums = {k: float(np.sum(params[k], dtype=np.float64)) for k in ("embed",)}
-    init_sums.update({f"layers.{k}": float(np.sum(v, dtype=np.float64))
-                      for k, v in params["layers"].items()})
+    init_sums = _init_sums(params)
     assert np.allclose(params["embed"].reshape(-1)[:8], _stream_head(INIT_SEED))
     losses = jax_trajectory(name, params, tokens)
     signs = np.random.default_rng(INIT_SEED + 1)
@@ -117,16 +130,14 @@ def test_generate_gqa2048_artifact():
     nudged_losses = jax_trajectory(name, nudged, tokens)
     spread = max(abs(a - b) for a, b in zip(losses, nudged_losses))
     artifact = {
-        "what": "JAX package losses of gqa-2048 trained in f32 on the CPU from a "
+        "what": f"JAX package losses of {name} trained in f32 on the CPU from a "
                 "numpy-seeded init and batch; the port's card run is held to them",
-        "generated_by": "tests/test_torch_trajectory.py::test_generate_gqa2048_artifact",
+        "generated_by": f"tests/test_torch_trajectory.py::{extra.pop('generated_by')}",
         "preset": name, "n_params": cfg.n_params(), "dtype": "float32",
         "jax": {"attn_impl": "dense", "remat": "full"},
-        "port": {"attn_impl": "flash", "remat": "save_mid", "tf32": False},
+        "port": {"attn_impl": cfg.attn_impl, "remat": cfg.remat, "tf32": False},
         "optimizer": "chain(clip_by_global_norm(1.0), adamw(lr, b1 0.9, b2 0.95, wd 0))",
-        "lr": tj.LR, "batch_size": batch, "seq_len": seq, "steps": STEPS,
-        "cuts": {"batch_size": "1 of the job's 6", "steps": "1 + 3 updates of the job's 1000",
-                 "data": "one fixed batch"},
+        "lr": tj.LR, "batch_size": batch, "seq_len": seq, "steps": STEPS, "cuts": cuts,
         "init_seed": INIT_SEED, "batch_seed": BATCH_SEED,
         "init": "tf_operator_tpu_torch.models.transformer.init_transformer_numpy(cfg, "
                 "init_seed): np.random.default_rng(init_seed) f32 normals",
@@ -134,6 +145,7 @@ def test_generate_gqa2048_artifact():
         "init_stream_head": _stream_head(INIT_SEED), "init_sums": init_sums,
         "first_batch_head": tokens[0, :16].tolist(),
         "first_batch_sum": int(tokens.sum(dtype=np.int64)),
+        **extra,
         "jax_losses": losses, "jax_losses_init_nudged": nudged_losses,
         "nudge": f"every init weight times 1 + {NUDGE_REL} s, s = +-1 from "
                  f"np.random.default_rng({INIT_SEED + 1})",
@@ -142,8 +154,37 @@ def test_generate_gqa2048_artifact():
         "card_limit": max(LIMIT_FLOOR, LIMIT_X * spread),
         "generate_s": time.time() - t0,
     }
-    (ROOT / tj.ARTIFACT).write_text(json.dumps(artifact, indent=1) + "\n")
+    (ROOT / path).write_text(json.dumps(artifact, indent=1) + "\n")
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+@pytest.mark.slow
+def test_generate_gqa2048_artifact():
+    _generate("gqa-2048", 1, 2048, {},
+              {"batch_size": "1 of the job's 6", "steps": "1 + 3 updates of the job's 1000",
+               "data": "one fixed batch"},
+              tj.ARTIFACT, generated_by="test_generate_gqa2048_artifact")
+
+
+BERT_MASK_RATE = 0.15
+
+
+def _jax_fixed_mask(shape):
+    """JAX's masked-LM mask when its loss is given no key."""
+    return np.asarray(jax.random.bernoulli(jax.random.PRNGKey(0), BERT_MASK_RATE, shape))
+
+
+@pytest.mark.slow
+def test_generate_bert_base_artifact():
+    batch, seq = 1, 512
+    _generate("bert-base", batch, seq, {"remat": "full"},
+              {"batch_size": "1 of the H100 job's 32 (examples/bert_base_h100.json)",
+               "steps": "1 + 3 updates of the job's 100", "data": "one fixed batch"},
+              tj.BERT_ARTIFACT, generated_by="test_generate_bert_base_artifact",
+              mask_rate=BERT_MASK_RATE,
+              mask="jax.random.bernoulli(PRNGKey(0), mask_rate, (batch_size, seq_len)), "
+                   "what JAX's lm_loss draws without a key, by its flat positions",
+              mask_positions=np.flatnonzero(_jax_fixed_mask((batch, seq))).tolist())
 
 
 def test_artifact_schema_and_seeds():
@@ -164,6 +205,23 @@ def test_artifact_schema_and_seeds():
     assert _stream_head(art["init_seed"]) == art["init_stream_head"]
     head = init_transformer_numpy(tj.trajectory_config("tiny"), art["init_seed"])["embed"]
     assert head.reshape(-1)[:8].tolist() == art["init_stream_head"]
+
+
+def test_bert_artifact_schema_and_mask():
+    art = json.loads((ROOT / tj.BERT_ARTIFACT).read_text())
+    cfg = tj.trajectory_config(art["preset"], remat=art["port"]["remat"])
+    assert art["preset"] == "bert-base" and not cfg.causal and art["port"]["remat"] == "full"
+    assert art["n_params"] == cfg.n_params() and art["lr"] == tj.LR
+    assert len(art["jax_losses"]) == art["steps"] == STEPS
+    assert all(math.isfinite(x) for x in art["jax_losses"]) and art["card_limit"] >= LIMIT_FLOOR
+    shape = (art["batch_size"], art["seq_len"])
+    mask = tj.trajectory_mask(shape, art["mask_positions"])
+    np.testing.assert_array_equal(mask, _jax_fixed_mask(shape))
+    assert art["mask_rate"] == BERT_MASK_RATE and 0.1 < mask.mean() < 0.2
+    tokens = tj.trajectory_tokens(cfg.vocab, *shape, art["batch_seed"])
+    assert tokens[0, :16].tolist() == art["first_batch_head"]
+    assert int(tokens.sum(dtype=np.int64)) == art["first_batch_sum"]
+    assert _stream_head(art["init_seed"]) == art["init_stream_head"]
 
 
 # ---- streamed and memmapped data through the workload ------------------------

@@ -4,16 +4,23 @@ Port of ``tf_operator_tpu/models/transformer.py``: the config and its
 presets (same numbers), parameter init (same tree, keys, stacked
 ``[L, ...]`` shapes and distributions), RMSNorm and rotary embeddings,
 the decoder layer with ``dense`` or ``flash`` attention and a dense
-SwiGLU or a top-k MoE MLP (``moe_dispatch="gmm"``, parallel/moe.py),
-the remat modes none, full and ``save_mid`` (``torch.utils.checkpoint``),
-the forward and the causal LM loss, fused or not, with the MoE router
-losses and telemetry. Master params stay f32 and are cast to
-``cfg.dtype`` inside the layer, as in the JAX package.
+SwiGLU or a top-k MoE MLP (every ``moe_dispatch`` without a mesh,
+parallel/moe.py), every remat mode of the JAX package (none, full,
+``dots`` and the ``save:`` names, on ``torch.utils.checkpoint``), the
+forward, the causal LM loss and the bidirectional (BERT-class) masked-LM
+loss, fused or not, with the MoE router losses and telemetry. Master
+params stay f32 and are cast to ``cfg.dtype`` inside the layer, as in the
+JAX package.
 
-Not ported yet, and raising where asked for: the other MoE dispatches
-(ROADMAP M11), ring and Ulysses attention (M12), meshes and sharding
-(M8), pipeline parallelism (M13), the other named remat policies and
-``dots`` (M2), and the bidirectional MLM loss (M2).
+Not ported yet, and raising where asked for: ring and Ulysses attention
+(ROADMAP M12), meshes and sharding (M8), pipeline parallelism (M13).
+
+Declared differences: the masked-LM loss without an explicit ``mask``
+uses a fixed mask drawn with ``np.random.RandomState(0)`` (JAX: the
+bits of ``jax.random.bernoulli(PRNGKey(0), ...)``; both use one mask at
+every step). Remat policies are built from checkpointed regions (named
+policies) and selective activation checkpointing (``dots``); what is
+stored and recomputed matches the JAX policy, the values are the same.
 
 Init draws from an explicit ``torch.Generator``; it cannot reproduce
 ``jax.random``'s bits, so parity tests convert the JAX package's params
@@ -22,13 +29,18 @@ Init draws from an explicit ``torch.Generator``; it cannot reproduce
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
 
@@ -273,6 +285,30 @@ def _rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * gamma.to(x.dtype)
 
 
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+class _Rope(torch.autograd.Function):
+    """The rotation and its transpose (the rotation by -angle). cos and sin
+    are constants of the positions and ride the context as attributes, not
+    as saved tensors: a checkpointed region that ends at a rotated
+    projection then stores nothing after the product, so its recompute
+    stops before the product runs again (the JAX policy keeps the
+    projection out of the recompute too)."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.cos, ctx.sin = cos, sin
+        return _rotate(x, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rotate(g, ctx.cos, -ctx.sin), None, None
+
+
 def rope_at_positions(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding at explicit ABSOLUTE positions. x: [b, t, h, d_head];
     positions: [b, t] int. A decode step's token sits at position
@@ -288,8 +324,7 @@ def rope_at_positions(x: torch.Tensor, positions: torch.Tensor, theta: float) ->
     angles = positions.to(torch.float32)[..., None] * freqs  # [b, t, half]
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return _Rope.apply(x, cos, sin)
 
 
 def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
@@ -320,36 +355,33 @@ def _attention(q, k, v, cfg: TransformerConfig):
     return reference_attention(q, k, v, causal=cfg.causal)
 
 
-def _attn_block(x, lp, cfg: TransformerConfig):
-    """Layer input -> ``resid_mid`` (x + attention), the first half of _layer."""
-    b, t, _ = x.shape
-    hd = cfg.head_dim
-    h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"].to(x.dtype)).reshape(b, t, -1, hd)
-    k = (h @ lp["wk"].to(x.dtype)).reshape(b, t, -1, hd)
-    v = (h @ lp["wv"].to(x.dtype)).reshape(b, t, -1, hd)
-    q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
-    attn = _attention(q, k, v, cfg).reshape(b, t, -1)
-    return x + attn @ lp["wo"].to(x.dtype)
+def _swiglu_experts(wp, toks):
+    """The SwiGLU expert body over stacked experts: toks [E, C, d], wp's
+    leaves [E, ...] (cast to the tokens' dtype), one batched product each."""
+    gate = F.silu(toks @ wp["w_gate"].to(toks.dtype))
+    return (gate * (toks @ wp["w_up"].to(toks.dtype))) @ wp["w_down"].to(toks.dtype)
 
 
 def _moe_mlp(h, lp, cfg: TransformerConfig):
     """Top-k expert MLP without a mesh: the router product in the
-    activation dtype, then parallel/moe.py's dispatch. Returns (out, aux):
+    activation dtype, then parallel/moe.py's dispatch (cfg.moe_dispatch)
+    with the SwiGLU expert body (sort, einsum: one batched product over
+    the stacked [E, C, d] inbox; ragged: ragged_swiglu; gmm: the grouped
+    matmul kernels, which compute the same body). Returns (out, aux):
     aux holds the UNWEIGHTED router losses (the loss head weighs them) and
     telemetry: the Switch load-balance loss E·Σ load·mean_gate (load comes
     from the discrete assignment and carries no gradient), the ST-MoE
     z-loss mean(logsumexp(f32 logits)²), expert_load [E] and drop_frac."""
-    from tf_operator_tpu_torch.parallel.moe import moe_apply
+    from tf_operator_tpu_torch.parallel.moe import moe_apply, ragged_swiglu
 
     b, t, d = h.shape
     flat = h.reshape(b * t, d)
     gate_logits = flat @ lp["w_router"].to(h.dtype)
     experts = {k: lp[k] for k in ("w_gate", "w_up", "w_down")}
     out, stats = moe_apply(
-        flat, gate_logits, experts, None, None, axis_name=cfg.ep_axis,
+        flat, gate_logits, experts, _swiglu_experts, None, axis_name=cfg.ep_axis,
         capacity_factor=cfg.capacity_factor, dropped="zero", k_top=cfg.moe_top_k,
-        return_stats=True, dispatch_impl=cfg.moe_dispatch)
+        return_stats=True, dispatch_impl=cfg.moe_dispatch, ragged_expert_fn=ragged_swiglu)
     lb_loss = cfg.n_experts * (stats["expert_load"] * stats["mean_gate"]).sum()
     z = torch.logsumexp(gate_logits.float(), dim=-1)
     aux = {"lb_loss": lb_loss, "z_loss": z.square().mean(),
@@ -357,26 +389,87 @@ def _moe_mlp(h, lp, cfg: TransformerConfig):
     return out.reshape(b, t, d), aux
 
 
-def _mlp_block(x, lp, cfg: TransformerConfig):
-    """``resid_mid`` -> (layer output, aux): x + the SwiGLU MLP (aux None),
-    or x + the MoE MLP (aux as _moe_mlp's). The second half of _layer."""
-    h = _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    if cfg.n_experts:
-        out, aux = _moe_mlp(h, lp, cfg)
-        return x + out, aux
-    z_gate = h @ lp["w_gate"].to(x.dtype)
-    up = h @ lp["w_up"].to(x.dtype)
+def _heads(h, w, cfg: TransformerConfig, rotate: bool):
+    """h @ w split into heads [b, t, n, hd], rotated for q and k."""
+    b, t, _ = h.shape
+    y = (h @ w.to(h.dtype)).reshape(b, t, -1, cfg.head_dim)
+    return _rope(y, cfg.rope_theta) if rotate else y
+
+
+def _resid_mid(lp, cfg: TransformerConfig, x, q, k, v):
+    """x + attention: the first half of the layer's residual stream."""
+    b, t, _ = x.shape
+    return x + _attention(q, k, v, cfg).reshape(b, t, -1) @ lp["wo"].to(x.dtype)
+
+
+def _swiglu_out(lp, cfg: TransformerConfig, x, z_gate, up):
+    """resid_mid + the SwiGLU MLP of its two products: (layer output, None)."""
     return x + (F.silu(z_gate) * up) @ lp["w_down"].to(x.dtype), None
+
+
+def _moe_out(lp, cfg: TransformerConfig, x, h):
+    """resid_mid + the MoE MLP of its normed h: (layer output, aux)."""
+    out, aux = _moe_mlp(h, lp, cfg)
+    return x + out, aux
+
+
+# One decoder layer as named values: name -> (the values it reads, how it
+# is computed from them). The names of the JAX model's checkpoint_name
+# tags (flash_q/k/v: flash's inputs after RoPE; resid_mid; mlp_gate and
+# mlp_up: the MLP's pre-activation products), the two normed activations
+# between them, and "out", the layer's (output, aux).
+_LAYER_VALUES = {
+    "h_attn": (("x",), lambda lp, cfg, x: _rms_norm(x, lp["attn_norm"], cfg.norm_eps)),
+    "flash_q": (("h_attn",), lambda lp, cfg, h: _heads(h, lp["wq"], cfg, True)),
+    "flash_k": (("h_attn",), lambda lp, cfg, h: _heads(h, lp["wk"], cfg, True)),
+    "flash_v": (("h_attn",), lambda lp, cfg, h: _heads(h, lp["wv"], cfg, False)),
+    "resid_mid": (("x", "flash_q", "flash_k", "flash_v"), _resid_mid),
+    "h_mlp": (("resid_mid",), lambda lp, cfg, x: _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)),
+    "mlp_gate": (("h_mlp",), lambda lp, cfg, h: h @ lp["w_gate"].to(h.dtype)),
+    "mlp_up": (("h_mlp",), lambda lp, cfg, h: h @ lp["w_up"].to(h.dtype)),
+    "out": (("resid_mid", "mlp_gate", "mlp_up"), _swiglu_out),
+}
+# An MoE layer has no mlp_gate/mlp_up: its MLP is the expert dispatch.
+_MOE_LAYER_VALUES = {k: v for k, v in _LAYER_VALUES.items() if not k.startswith("mlp_")} | {
+    "out": (("resid_mid", "h_mlp"), _moe_out)}
+
+
+def _layer_values(cfg: TransformerConfig) -> dict:
+    return _MOE_LAYER_VALUES if cfg.n_experts else _LAYER_VALUES
+
+
+def _value(name: str, env: dict, lp, cfg: TransformerConfig):
+    """The layer value ``name``, computed (and kept in ``env``) from the
+    values ``env`` already holds."""
+    if name not in env:
+        reads, fn = _layer_values(cfg)[name]
+        env[name] = fn(lp, cfg, *[_value(r, env, lp, cfg) for r in reads])
+    return env[name]
+
+
+def _inputs_of(name: str, have, cfg: TransformerConfig) -> list:
+    """The values of ``have`` that computing ``name`` reads, through the
+    values that are not in ``have``; in _LAYER_VALUES order."""
+    found = set()
+
+    def walk(n):
+        if n in have:
+            found.add(n)
+        else:
+            for r in _layer_values(cfg)[n][0]:
+                walk(r)
+
+    walk(name)
+    return [n for n in ("x", *_LAYER_VALUES) if n in found]
 
 
 def _layer(x, lp, cfg: TransformerConfig):
     """One decoder layer (pre-norm attention, then the pre-norm MLP):
     (x, aux), aux None for a dense layer."""
-    return _mlp_block(_attn_block(x, lp, cfg), lp, cfg)
+    return _value("out", {"x": x}, lp, cfg)
 
 
 # Remat policies of the JAX package (name -> the activations it saves).
-# The port runs "save_mid"; the others raise until ported.
 _REMAT_SAVE_SETS: Dict[str, tuple] = {
     "save_mid": ("resid_mid",),
     "save_qkv": ("flash_q", "flash_k", "flash_v"),
@@ -414,29 +507,82 @@ def remat_save_names(remat) -> Optional[tuple]:
     return None
 
 
+def kept_names(cfg: TransformerConfig) -> tuple:
+    """The named values a layer keeps under cfg's names policy, in layer
+    order: the policy's names that the layer tags, as the JAX model tags
+    them (flash_q/k/v only under ``attn_impl="flash"``, where the flash
+    entry tags its inputs; mlp_gate/mlp_up only in a dense MLP), and
+    resid_mid too where the policy keeps an MLP product without it (a
+    declared difference: both MLP regions read resid_mid, which would
+    otherwise run the attention half twice in the forward, where the JAX
+    policy runs it once and recomputes it in the backward)."""
+    names = set(remat_save_names(cfg.remat) or ())
+    if cfg.attn_impl != "flash":
+        names -= {"flash_q", "flash_k", "flash_v"}
+    if cfg.n_experts:
+        names -= {"mlp_gate", "mlp_up"}
+    if names & {"mlp_gate", "mlp_up"}:
+        names.add("resid_mid")
+    return tuple(n for n in _LAYER_VALUES if n in names)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots`` (JAX's dots_with_no_batch_dims_saveable): keep the outputs
+    of 2-D products, recompute everything else, batched products included.
+    Replays go by op order; the flash and grouped-matmul kernels are ctypes
+    launches into buffers from ``aten.empty``, invisible here, so no
+    allocation may be kept or a replay would skip the launch that fills it."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _saving_layer(cfg: TransformerConfig):
+    """layer(x, lp) under a names policy: each kept name is the output of a
+    checkpointed region that reads the layer input and the kept names
+    before it, and the layer's output another, so what the outer graph
+    keeps is exactly the layer input and the kept names, and the backward
+    recomputes the rest (a region's recompute stops at its last stored
+    tensor: the product that makes a kept name does not run again)."""
+    saved = kept_names(cfg)
+
+    def region(name, env, lp):
+        reads = _inputs_of(name, env, cfg)
+
+        def run(*tensors):
+            return _value(name, dict(zip(reads, tensors)), lp, cfg)
+
+        return checkpoint(run, *[env[r] for r in reads], use_reentrant=False)
+
+    def layer(x, lp):
+        env = {"x": x}
+        for name in saved:
+            env[name] = region(name, env, lp)
+        return region("out", env, lp)
+
+    return layer
+
+
 def _remat_wrap(cfg: TransformerConfig):
     """layer(x, lp) -> (x, aux) under cfg.remat. ``full`` saves only the
-    layer input and recomputes the layer in the backward; ``save_mid``
-    saves the layer input and ``resid_mid``, i.e. two checkpointed regions
-    split there, so the backward recomputes the attention half from x and
-    the MLP half from resid_mid (and the flash forward runs again, as in
-    JAX). The MoE aux leaves are outputs of the checkpointed regions."""
+    layer input and recomputes the layer in the backward; ``dots`` keeps
+    the 2-D products' outputs (selective activation checkpointing); a
+    names policy keeps the layer input and kept_names (_saving_layer).
+    The flash forward runs again in the backward under every mode but
+    none, as in JAX, whose flash boundary keeps no (o, lse). The MoE aux
+    leaves are outputs of the checkpointed regions."""
     remat = cfg.remat
     if remat in (True, "full"):
         return lambda x, lp: checkpoint(_layer, x, lp, cfg, use_reentrant=False)
     if remat in (False, None, "none"):
         return lambda x, lp: _layer(x, lp, cfg)
-    names = remat_save_names(remat)
-    if names == ("resid_mid",):
-        def save_mid(x, lp):
-            mid = checkpoint(_attn_block, x, lp, cfg, use_reentrant=False)
-            return checkpoint(_mlp_block, mid, lp, cfg, use_reentrant=False)
-        return save_mid
-    if names is not None or remat == "dots":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP M2: the port runs "
-            "none, full and save_mid)")
-    raise ValueError(f"unknown remat mode {remat!r}")
+    if remat == "dots":
+        contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda x, lp: checkpoint(_layer, x, lp, cfg, use_reentrant=False,
+                                        context_fn=contexts)
+    if remat_save_names(remat) is None:
+        raise ValueError(f"unknown remat mode {remat!r}")
+    return _saving_layer(cfg)
 
 
 def _check_supported(cfg: TransformerConfig, mesh) -> None:
@@ -444,10 +590,6 @@ def _check_supported(cfg: TransformerConfig, mesh) -> None:
         raise NotImplementedError("meshes and sharding are not ported yet (ROADMAP M8)")
     if cfg.pp_microbatches:
         raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP M13)")
-    if cfg.n_experts and cfg.moe_dispatch != "gmm":
-        raise NotImplementedError(
-            f"moe_dispatch={cfg.moe_dispatch!r} is not ported yet (ROADMAP M11: the "
-            "port runs 'gmm')")
 
 
 def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None,
@@ -489,30 +631,61 @@ def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None):
     return (x @ params["embed"].to(cfg.dtype).T).float()
 
 
-def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None):
-    """Causal next-token cross entropy: (total_loss, metrics). Fused
-    (ops/fused_cross_entropy.py, no [b, t, vocab] logits in memory) or the
-    unfused log-softmax, the same math. For MoE configs the total adds
-    ``moe_aux_weight`` times the load-balance loss and ``moe_zloss_weight``
-    times the z-loss, and metrics carries the router telemetry beside
-    ``ce_loss``: moe_lb_loss, moe_z_loss (unweighted), moe_expert_entropy
-    (mean over layers, nats; uniform routing = ln(E)) and moe_drop_frac."""
-    if not cfg.causal:
-        raise NotImplementedError(
-            "the bidirectional MLM loss is not ported yet (ROADMAP M2)")
-    h, aux = transformer_hidden(params, tokens, cfg, mesh, with_aux=True)
+MASK_TOKEN = 0
+
+
+@functools.lru_cache(maxsize=8)
+def mlm_mask(shape: tuple, mask_rate: float, device: torch.device) -> torch.Tensor:
+    """The masked-LM loss's fixed mask: ``np.random.RandomState(0)
+    .random_sample(shape) < mask_rate`` as a bool tensor on ``device``,
+    drawn on the host (the card and the CPU then mask the same positions)
+    and kept per shape and device. JAX draws its fixed mask from
+    ``PRNGKey(0)`` (a declared difference: other bits, the same rate)."""
+    m = np.random.RandomState(0).random_sample(shape) < mask_rate
+    return torch.from_numpy(m).to(device)
+
+
+def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None, *,
+                        mask: Optional[torch.Tensor] = None, mask_rate: float = 0.15):
+    """(total_loss, metrics). Causal: next-token cross entropy.
+    Bidirectional (BERT-class): masked language modeling, the positions
+    of ``mask`` (bool [b, t]; by default ``mlm_mask``, the same at every
+    call, as JAX's default key gives) replaced with MASK_TOKEN and only
+    those positions weighed in the cross entropy, sum(w·xent) / max(sum w,
+    1). Fused (ops/fused_cross_entropy.py, no [b, t, vocab] logits in
+    memory) or the unfused log-softmax, the same math. For MoE configs the
+    total adds ``moe_aux_weight`` times the load-balance loss and
+    ``moe_zloss_weight`` times the z-loss, and metrics carries the router
+    telemetry beside ``ce_loss``: moe_lb_loss, moe_z_loss (unweighted),
+    moe_expert_entropy (mean over layers, nats; uniform routing = ln(E))
+    and moe_drop_frac."""
+    if cfg.causal:
+        inputs, targets, weights = tokens, tokens[:, 1:], None
+    else:
+        if mask is None:
+            mask = mlm_mask(tuple(tokens.shape), float(mask_rate), tokens.device)
+        mask = mask.to(tokens.device)
+        inputs = tokens.masked_fill(mask, MASK_TOKEN)
+        targets, weights = tokens, mask
+    h, aux = transformer_hidden(params, inputs, cfg, mesh, with_aux=True)
+    if cfg.causal:
+        h = h[:, :-1]
+    b, t, d = h.shape
     if cfg.fused_xent:
         from tf_operator_tpu_torch.ops.fused_cross_entropy import fused_cross_entropy
 
-        h = h[:, :-1]
-        b, t, d = h.shape
-        ce = fused_cross_entropy(
-            h.reshape(b * t, d), params["embed"], tokens[:, 1:].reshape(b * t))
+        ce = fused_cross_entropy(h.reshape(b * t, d), params["embed"],
+                                 targets.reshape(b * t),
+                                 weights=None if weights is None else weights.reshape(b * t))
     else:
-        logits = (h @ params["embed"].to(cfg.dtype).T).float()[:, :-1]
+        logits = (h @ params["embed"].to(cfg.dtype).T).float()
         logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
-        ce = -ll.mean()
+        ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
+        if weights is None:
+            ce = -ll.mean()
+        else:
+            w = weights.float()
+            ce = -(ll * w).sum() / w.sum().clamp(min=1.0)
     metrics = {"ce_loss": ce}
     if aux is None:
         return ce, metrics
@@ -525,7 +698,8 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None):
     return total, metrics
 
 
-def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None):
+def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None, *,
+            mask: Optional[torch.Tensor] = None, mask_rate: float = 0.15):
     """Scalar training loss (lm_loss_and_metrics without the metrics);
     includes the weighted MoE router losses for MoE configs."""
-    return lm_loss_and_metrics(params, tokens, cfg, mesh)[0]
+    return lm_loss_and_metrics(params, tokens, cfg, mesh, mask=mask, mask_rate=mask_rate)[0]

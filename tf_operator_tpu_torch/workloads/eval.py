@@ -18,7 +18,9 @@ poll_interval_s, train_steps (stop once a checkpoint at or past it is
 scored; 0 scores the latest checkpoint and exits), max_wait_s (give up
 when nothing new appears for that long), eval_report; plus ``device``
 (default ``cuda``). The LM score is the mean cross-entropy (``ce_loss``,
-not the training objective, which adds MoE router losses) over
+not the training objective, which adds MoE router losses; for a
+``causal: false`` model the masked-LM CE with the loss's fixed mask, as
+the JAX Evaluator scores with its fixed key) over
 ``eval_batches`` batches: with ``data: memmap`` the corpus's held-out tail
 (``holdout_windows`` windows of the trainer's ``seq_len``, each cut into
 ``eval_seq_len`` pieces), else synthetic batches. On the card each scored
@@ -27,7 +29,8 @@ launches.
 
 Declared differences from the JAX workload: the synthetic batches are
 ``np.random.RandomState(10_000 + i).randint(0, vocab, (batch, seq))``,
-where JAX uses ``jax.random.randint(PRNGKey(10_000 + i), ...)``; one
+where JAX uses ``jax.random.randint(PRNGKey(10_000 + i), ...)``, and the
+masked LM's fixed mask is numpy's draw, not ``PRNGKey(0)``'s; one
 device (no dp mesh); the context is read through ``getattr``, so a
 context without ``report_eval_metrics`` works.
 """

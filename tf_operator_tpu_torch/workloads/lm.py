@@ -1,13 +1,16 @@
 """Transformer language-model training workload on the port (operator-launchable).
 
 Port of ``tf_operator_tpu/workloads/lm.py``: trains a transformer preset
-(dense, or MoE with ``moe_dispatch: gmm``) with the single-device Trainer
+(dense or MoE under any ``moe_dispatch``, causal LM or, for ``causal:
+false`` presets such as bert-base, the masked LM with its fixed mask)
+with the single-device Trainer
 on one fixed batch, synthetic batches streamed through the DeviceLoader,
 or a tokenized corpus memmap, and logs tokens/s and MFU, counted on the
 params a token touches (``n_active_params``, so top-1 MoE counts one
 expert). For MoE presets it then logs the router health line of the JAX
-workload (expert entropy against uniform, drop fraction, the router
-losses) on the trained params and the fixed (or probe) batch. The
+workload (expert entropy against uniform, the fraction of token choices
+the capacity dispatches dropped, the router losses) on the trained params
+and the fixed (or probe) batch. The
 operator launches ``tf_operator_tpu_torch.workloads.lm:main`` like any
 entrypoint; ``main``
 uses the context only through its attributes (``workload``,
@@ -38,9 +41,10 @@ checkpoint_keep, checkpoint_async, checkpoint_backend) plus ``device``
   the batches its checkpoint's steps consumed. Tokens arrive on the card
   as int32 and are widened to int64 there. A ``data`` value other than
   fixed, stream and memmap raises, where JAX trains on its fixed batch.
+- The masked LM's fixed mask is ``np.random.RandomState(0)``'s draw
+  (``models/transformer.py`` ``mlm_mask``), where JAX's is ``PRNGKey(0)``'s.
 - Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
-  means npy), more than one process (M8), MoE dispatches other than
-  ``gmm`` (M11).
+  means npy), more than one process (M8).
 """
 
 from __future__ import annotations
@@ -203,8 +207,9 @@ def run_lm(wl: dict, device: DeviceLike = None,
 def router_metrics(run: LMRun) -> Optional[dict]:
     """Router health on the trained params and the run's batch (the probe
     batch of a loader run): expert entropy (nats; ``uniform`` = ln E),
-    drop fraction and the unweighted router losses, as floats. None for a
-    dense model. One forward pass."""
+    drop fraction (the token choices past an expert's capacity under the
+    sort and einsum dispatches; 0 under ragged and gmm) and the unweighted
+    router losses, as floats. None for a dense model. One forward pass."""
     if not run.cfg.n_experts:
         return None
     with torch.no_grad():
