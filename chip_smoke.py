@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (dense, masked-LM,
-every remat policy, MoE under every dispatch, and ResNet), its input
-pipeline and its Evaluator on one NVIDIA GPU and check them.
+every remat policy, MoE under every dispatch, and ResNet; one process and
+two ranks sharing the card under a mesh), its input pipeline and its
+Evaluator on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
 
@@ -86,6 +87,24 @@ Training path:
     kernels exactly 2·L / L / L times for each of its 7 steps, ends at step
     11 and exits 0; its ``lm done`` line gives step time, tokens/s and MFU,
     and its final loss is held to an uninterrupted run of the same spec.
+12b'. The gang phases, each rank the real harness with the operator's
+    ``TPUJOB_*`` environment of an N-process gang, two ranks sharing the
+    card over gloo (``TPUJOB_DIST_BACKEND=gloo``; NCCL refuses two ranks
+    on one device): ``dist_smoke`` (``examples/smoke_h100.json``, dim 256:
+    both ranks' checksums exact; then one process as an NCCL group of
+    one; then a ring shift on two ranks, staged through the host: values,
+    transpose and bytes exact); ``nccl_world1`` (in this process: gqa-2048
+    of phase 9 through the sharded trainer as an NCCL group of one, mesh
+    fsdp 1 x tp 1, 1 + 3 steps: losses and gradient norms bitwise equal to
+    phase 9's); ``mesh_train`` (gqa-2048 at full width on two ranks under
+    fsdp 2, then tp 2, 1 + 3 steps: losses and gradient norms within the
+    mesh limits of phase 9's, the replicated leaves equal on both ranks,
+    K1-K3 2·L / L / L a rank and step, K1 at 8 and 2 heads under tp; step
+    ms, host seconds in collectives, bytes staged through the host, peak
+    GB a rank; then a planted fault of each mesh's gradient path, which
+    must fail those limits); ``gang_peer_loss`` (tiny LM on two ranks,
+    rank 1 killed: rank 0 exits 138 within the gang's timeout). Two ranks
+    on one card are a path check, not a scaling figure.
 12c. ``jax_trajectory``: gqa-2048 at full width and depth in f32 (TF32
     off) through K1-K3, from the numpy-seeded init and batch of
     ``artifacts/torch_vs_jax_gqa2048.json`` (b 1, t 2048): 1 + 3 AdamW
@@ -202,7 +221,11 @@ ResNet training path:
     after the first update; step time, images/s, MFU and peak memory.
     Then the same with ``fused_1x1`` off (cuDNN 1x1 convolutions, the
     plain BN path), and ``resnet_agreement``: the fused run's losses over
-    the first 4 steps within 1% of the unfused run's.
+    the first 4 steps within 1% of the unfused run's. ``resnet_dp``: the
+    fused job on two ranks sharing the card under dp 2 (64 images a rank,
+    synced batch norm, K8's column sums summed over the ranks), 1 + 3
+    steps: the losses within 1% of the fused run's, the BN running
+    statistics bitwise equal across the ranks, K8 36 a step a rank.
     ``resnet_forward_check`` (after phase 22's fused breakdown): the first
     step's forward through K8 against the same through its plain version,
     the loss and every batch norm's new running statistics.
@@ -275,8 +298,11 @@ from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.ops import fused_linear_stats as fls
 from tf_operator_tpu_torch.ops import grouped_matmul as gm
+from tf_operator_tpu_torch.parallel import collectives as coll
 from tf_operator_tpu_torch.parallel import moe as moe_mod
+from tf_operator_tpu_torch.parallel.mesh import build_mesh as build_rank_mesh
 from tf_operator_tpu_torch.parallel.moe import block_layout
+from tf_operator_tpu_torch.rendezvous.context import DIST_TIMEOUT_S
 from tf_operator_tpu_torch.serve.engine import (
     ServeConfig,
     ServeEngine,
@@ -2111,12 +2137,12 @@ HARNESS_KERNELS = re.compile(r"lm kernels: flash_fwd_launches=(\d+) flash_bwd_dq
                              r"flash_bwd_dkv_launches=(\d+) final_loss=(\S+)")
 
 
-def harness_env(spec: dict, wl: dict, ckpt_dir: Path, replica_type: str = "Worker",
+def harness_env(spec: dict, wl: dict, ckpt_dir, replica_type: str = "Worker",
                 entrypoint: str = "") -> dict:
     """The TPUJOB_* environment the operator's local backend gives the
-    job's one worker (identity, gang, workload, and the warm-restart
-    contract: the directory and the latest complete step in it), or its
-    replica of ``replica_type`` running ``entrypoint``."""
+    job's one worker (identity, gang, workload, and with ``ckpt_dir`` the
+    warm-restart contract: the directory and the latest complete step in
+    it), or its replica of ``replica_type`` running ``entrypoint``."""
     tmpl = spec["spec"]["replica_specs"]["Worker"]["template"]
     env = dict(os.environ)
     env.update({
@@ -2129,9 +2155,12 @@ def harness_env(spec: dict, wl: dict, ckpt_dir: Path, replica_type: str = "Worke
         "TPUJOB_NUM_PROCESSES": "1", "TPUJOB_PROCESS_ID": "0",
         "TPUJOB_MESH_AXES": json.dumps(spec["spec"]["topology"].get("mesh_axes", {})),
         "TPUJOB_WORKLOAD": json.dumps(wl),
-        "TPUJOB_CHECKPOINT_DIR": str(ckpt_dir),
-        "TPUJOB_RESUME_STEP": str(ckpt_mod.latest_checkpoint_step(str(ckpt_dir))),
     })
+    if ckpt_dir is not None:
+        env.update({
+            "TPUJOB_CHECKPOINT_DIR": str(ckpt_dir),
+            "TPUJOB_RESUME_STEP": str(ckpt_mod.latest_checkpoint_step(str(ckpt_dir))),
+        })
     return env
 
 
@@ -2219,6 +2248,483 @@ def phase_operator_resume(smi):
           "final_loss_diff": diff, "limit": OPERATOR_RESUME_LOSS_ATOL,
           "bitwise_equal_final_loss": diff == 0.0,
           "incarnation_s": [s1, s2], "uninterrupted_s": s3, "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# multi-process training: ranks of one gang through the real harness
+# ---------------------------------------------------------------------------
+
+# dist_smoke: the port's smoke job as examples/smoke_h100.json ships it (two
+# workers sharing the card over gloo, dim 256), then as an NCCL group of one.
+SMOKE_SPEC = REPO / "examples" / "smoke_h100.json"
+RESNET_SPEC = REPO / "examples" / "resnet50_h100.json"
+# Two ranks on one card run gloo: NCCL refuses two ranks on one device.
+GLOO_ENV = {"TPUJOB_DIST_BACKEND": "gloo"}
+# mesh_train: the train phase's job (gqa-2048 at full width and depth,
+# global batch 6, t 2048, flash, save_mid, bf16) for 1 + 3 steps on two
+# ranks under each mesh, from the same seed's init and the same fixed
+# batch (each fsdp rank keeps its 3 rows; tp ranks read all 6).
+MESH_TRAIN_AXES = ({"fsdp": 2}, {"tp": 2})
+MESH_WL = {**TRAIN_WL, "steps": 3}
+# The sharded run against the train phase's first four steps. Only where
+# bf16 values are rounded differs: fsdp runs every product on 3 rows
+# instead of 6 (cuBLAS may pick another split of the f32 sums) and sums
+# the loss over two ranks; tp rounds each row-parallel partial (wo,
+# w_down) to bf16 before the two are summed. Each limit sits ~5x or more
+# above the sound runs' largest reading and ~10x or more below the
+# smallest gap of the planted faults (MESH_PLANTS, run at this phase's
+# shape), on "NVIDIA H100 80GB HBM3, 700.00 W" (readings repeated bitwise
+# across runs, PERF.md):
+# - the first loss (forward only): sound fsdp 0, tp 8.7e-5; the plants
+#   leave it alone (a gradient fault), a forward fault moves it by far more;
+# - the later losses: sound at most 2.4e-4 (fsdp) and 1.07e-3 (tp, step
+#   3); plants 6.3e-2 (fsdp) and 0.65 (tp) at step 1;
+# - every step's gradient norm before the clip, relative: sound at most
+#   3.5e-4 (fsdp) and 1.12e-3 (tp); plants 0.29 and 0.52 at step 0.
+MESH_FIRST_LOSS_ATOL = 5e-4
+MESH_LOSS_ATOL = 5e-3
+MESH_GRAD_NORM_RTOL = 1e-2
+# Faults planted in the sharded path for mesh_train: name -> (mesh, the
+# code each rank runs before the harness). Each must fail mesh_verdict.
+# fsdp: the param gather's transpose keeps the rank's block of its own
+# cotangent instead of reduce-scattering (a data-axis gradient left
+# unreduced); tp: tp_region_enter's backward passes the rank's partial
+# cotangent on unsummed (Megatron's f without its all-reduce).
+_COLL = "import tf_operator_tpu_torch.parallel.collectives as c\n"
+MESH_PLANTS = {
+    "fsdp_gather_grad_not_reduced": ({"fsdp": 2}, _COLL + (
+        "c._AllGather.backward = staticmethod(lambda ctx, g: "
+        "(c._block(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None, None))\n")),
+    "tp_enter_grad_not_summed": ({"tp": 2}, _COLL + (
+        "c._TpEnter.backward = staticmethod(lambda ctx, g: (g, None, None))\n")),
+}
+# a plant's run: 1 + 2 steps (the first gradient and two updates)
+MESH_PLANT_WL = {**MESH_WL, "steps": 2}
+# resnet_dp: resnet_train's job (ResNet-50, fused_1x1, global batch 128,
+# 224^2) for 1 + 3 steps on two ranks under dp 2, 64 images each, batch
+# norm synced; its first RESNET_AGREE_STEPS losses within RESNET_AGREE_RTOL
+# of the single-process fused run's (resnet_agreement's limit: the same
+# math with the statistics summed over two ranks).
+RESNET_DP_WL = {**RESNET_WL, "steps": 3, "fused_1x1": True}
+# gang_peer_loss: two ranks of tiny LM on the card under dp 2; rank 1 is
+# killed (SIGKILL) once both train; rank 0 must exit 138 within the gang's
+# collective timeout (rendezvous.context.DIST_TIMEOUT_S).
+PEER_LOSS_WL = {"preset": "tiny", "steps": 100000, "batch_size": 4, "seq_len": 64,
+                "attn": "flash", "remat": "save_mid", "lr": 3e-4, "data": "fixed"}
+RANK_LINE = re.compile(r"(?:lm|resnet) rank: (\{.*\})")
+SMOKE_OK = re.compile(r"smoke ok: (\d+) devices, checksum (\d+) \(rank (\d+) at .*, (\w+)\)")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def gang_env(spec: dict, wl: dict, rank: int, n: int, coordinator: str, mesh_axes: dict,
+             extra: dict) -> dict:
+    """harness_env for rank ``rank`` of an ``n``-process gang."""
+    env = harness_env(spec, wl, None)
+    env.update({"TPUJOB_NUM_PROCESSES": str(n), "TPUJOB_PROCESS_ID": str(rank),
+                "TPUJOB_REPLICA_INDEX": str(rank), "TPUJOB_COORDINATOR_ADDRESS": coordinator,
+                "TPUJOB_MESH_AXES": json.dumps(mesh_axes)})
+    env.update(extra)
+    return env
+
+
+def start_gang(spec, wl, n, mesh_axes, log_dir: Path, extra: dict, prelude: str = "") -> tuple:
+    """The gang's ranks, each the real harness as a subprocess logging to
+    ``log_dir/rank<r>.log`` (after ``prelude``, code each rank runs first:
+    a planted fault): (processes, log paths)."""
+    coordinator = f"localhost:{free_port()}"
+    cmd = [sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"]
+    if prelude:
+        cmd = [sys.executable, "-c", prelude + "import runpy\nrunpy.run_module("
+               "'tf_operator_tpu.rendezvous.harness', run_name='__main__', alter_sys=True)\n"]
+    procs, paths = [], []
+    try:
+        for r in range(n):
+            paths.append(log_dir / f"rank{r}.log")
+            with open(paths[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    cmd, env=gang_env(spec, wl, r, n, coordinator, mesh_axes, extra), cwd=REPO,
+                    stdout=log, stderr=subprocess.STDOUT))
+    except BaseException:
+        stop_gang(procs)
+        raise
+    return procs, paths
+
+
+def stop_gang(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def run_gang(spec, wl, n, mesh_axes, log_dir: Path, extra: dict, timeout: float,
+             prelude: str = "") -> tuple:
+    """Run a gang to its end: (exit codes, seconds, log texts). A rank still
+    running at ``timeout`` fails the phase; no process outlives the call."""
+    log_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs, paths = start_gang(spec, wl, n, mesh_axes, log_dir, extra, prelude)
+    try:
+        rcs = [p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0))) for p in procs]
+    except subprocess.TimeoutExpired:
+        stop_gang(procs)
+        texts = "\n".join(p.read_text()[-2000:] for p in paths)
+        check(False, f"gang of {n} did not end within {timeout} s:\n{texts}")
+    finally:
+        stop_gang(procs)
+    return rcs, time.perf_counter() - t0, [p.read_text() for p in paths]
+
+
+def rank_lines(texts, phase: str) -> list:
+    """Each rank's ``lm rank`` / ``resnet rank`` JSON line."""
+    out = []
+    for r, text in enumerate(texts):
+        found = RANK_LINE.findall(text)
+        check(bool(found), f"{phase}: rank {r} logged no rank line:\n{text[-3000:]}")
+        out.append(json.loads(found[-1]))
+    return out
+
+
+def gang_dir(name: str) -> Path:
+    d = CKPT_ROOT / "gang" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+# Two ranks on the card over gloo: collectives.ring_shift of a CUDA tensor
+# and its transpose, through the pinned host buffers (gloo's send/recv
+# cannot take a device pointer). Each rank prints a ``ring`` JSON line.
+RING_SHIFT = """
+import json, sys
+from datetime import timedelta
+import torch
+import torch.distributed as dist
+from tf_operator_tpu_torch.parallel import collectives as coll
+from tf_operator_tpu_torch.parallel.mesh import build_mesh
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                        world_size=2, timeout=timedelta(seconds=120))
+mesh = build_mesh({"tp": 2}, ranks=[0, 1], device_type="cuda")
+x = torch.full((1024, 256), float(rank + 1), device="cuda", requires_grad=True)
+y = coll.ring_shift(x, mesh, "tp")
+y.backward(torch.full_like(y, float(10 * (rank + 1))))
+torch.cuda.synchronize()
+print("ring " + json.dumps({"rank": rank, "on_card": y.is_cuda and x.grad.is_cuda,
+                            "y": sorted(set(y.detach().flatten().tolist())),
+                            "grad": sorted(set(x.grad.flatten().tolist())),
+                            "staged_bytes": coll.staged_bytes, "calls": coll.collective_calls}))
+dist.destroy_process_group()
+"""
+RING_LINE = re.compile(r"^ring (\{.*\})$", re.M)
+
+
+def ring_shift_on_card() -> dict:
+    """RING_SHIFT on two ranks: rank r receives rank 1 - r's block (value
+    2 - r) and gets back the cotangent rank 1 - r gave (10 (2 - r)); each
+    rank stages its 1 MiB block and the 1 MiB it receives, both ways
+    (4 MiB in two calls)."""
+    port = str(free_port())
+    env = {**os.environ, "PYTHONPATH": str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    procs = [subprocess.Popen([sys.executable, "-c", RING_SHIFT, str(r), port], env=env,
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        texts = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        stop_gang(procs)
+    block = 1024 * 256 * 4
+    out = []
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        found = RING_LINE.findall(text)
+        check(p.returncode == 0 and bool(found), f"ring_shift rank {r}: exit {p.returncode}:\n"
+              f"{text[-3000:]}")
+        x = json.loads(found[-1])
+        want = {"rank": r, "on_card": True, "y": [2.0 - r], "grad": [10.0 * (2 - r)],
+                "staged_bytes": 4 * block, "calls": 2}
+        check(x == want, f"ring_shift rank {r}: {x}, want {want}")
+        out.append(x)
+    return {"ranks": out, "staged_bytes_per_rank": 4 * block}
+
+
+def phase_dist_smoke(smi):
+    """The port's smoke entrypoint through the harness: two ranks on the
+    card over gloo (examples/smoke_h100.json), every rank's checksum
+    n_dev * dim^3 within rel 1e-5 (the workload raises otherwise); then one
+    process as an NCCL group of one, whose all-reduce runs on NCCL; then
+    the ring shift on two ranks over gloo (ring_shift_on_card), the one
+    collective that stages through the host."""
+    spec = json.loads(SMOKE_SPEC.read_text())
+    wl = spec["spec"]["workload"]
+    env = spec["spec"]["replica_specs"]["Worker"]["template"].get("env", {})
+    d = gang_dir("dist_smoke")
+    out = {}
+    try:
+        for label, n, extra, backend in (("gloo_2", 2, env, "gloo"),
+                                         ("nccl_1", 1, {"TPUJOB_DIST_BACKEND": "nccl"}, "nccl")):
+            rcs, secs, texts = run_gang(spec, wl, n, {}, d / label, extra, timeout=300)
+            check(rcs == [0] * n, f"dist_smoke {label}: exit codes {rcs}:\n{texts[0][-3000:]}")
+            want = n * int(wl["dim"]) ** 3
+            seen = []
+            for r, text in enumerate(texts):
+                found = SMOKE_OK.findall(text)
+                check(bool(found), f"dist_smoke {label}: rank {r} logged no smoke ok:\n"
+                      f"{text[-3000:]}")
+                devices, total, rank, used = found[-1]
+                check(int(devices) == n and int(rank) == r and used == backend
+                      and math.isclose(float(total), want, rel_tol=1e-5),
+                      f"dist_smoke {label}: rank {r} logged {found[-1]}, want {want} on {backend}")
+                seen.append(float(total))
+            out[label] = {"ranks": n, "backend": backend, "checksums": seen, "want": want,
+                          "seconds": secs}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["ring_shift_gloo_2"] = ring_shift_on_card()
+    emit({"phase": "dist_smoke", "spec": str(SMOKE_SPEC.relative_to(REPO)), "dim": wl["dim"],
+          **out, "card": smi})
+
+
+def phase_nccl_world1(smi, base_losses, base_norms, base_step_ms, dev="cuda"):
+    """gqa-2048 at full width through the sharded trainer as an NCCL group
+    of one, mesh {"fsdp": 1, "tp": 1}, 1 + 3 steps from train's seed and
+    fixed batch: every collective of the sharded path is on an axis of size
+    1, so the losses and gradient norms must equal train's first four
+    bitwise (failing that, within the mesh limits, and the line says so);
+    K1-K3 launched as there."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = build_rank_mesh({"fsdp": 1, "tp": 1}, ranks=[0], device_type="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        coll.reset_counters()
+        run = run_lm(MESH_WL, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    n, L = len(run.losses), run.cfg.n_layers
+    want = {name: DENSE_PER_LAYER.get(name, 0) * L * n for name in COUNTERS}
+    check(counts == want, f"nccl_world1 launches {counts} != {want}")
+    base = base_losses[:n]
+    diffs = [abs(a - b) for a, b in zip(run.losses, base)]
+    norm_rel = [abs(a - b) / b for a, b in zip(run.grad_norms, base_norms)]
+    bitwise = run.losses == base and run.grad_norms == base_norms[:n]
+    check(bitwise or (diffs[0] <= MESH_FIRST_LOSS_ATOL and max(diffs) <= MESH_LOSS_ATOL
+                      and max(norm_rel) <= MESH_GRAD_NORM_RTOL),
+          f"nccl_world1 losses {run.losses} and grad norms {run.grad_norms} vs train's "
+          f"{base} and {base_norms[:n]}")
+    emit({"phase": "nccl_world1", "backend": backend, "mesh": {"fsdp": 1, "tp": 1},
+          "steps": n, "losses": run.losses, "train_losses": base, "bitwise_equal": bitwise,
+          "loss_abs_diff": diffs, "grad_norms": run.grad_norms,
+          "train_grad_norms": base_norms[:n], "launches": counts, "step_ms": run.step_s * 1e3,
+          "train_step_ms": base_step_ms, "collective_calls": coll.collective_calls,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+
+
+def mesh_verdict(lines, base_losses, base_norms) -> tuple:
+    """(failed checks, readings) of a two-rank run's rank lines against the
+    one-process run's first losses and gradient norms: the first loss,
+    the later ones and every gradient norm within the mesh limits, and the
+    replicated leaves (tp's norms) one digest on both ranks."""
+    losses, norms = lines[0]["losses"], lines[0]["grad_norms"]
+    loss_diff = [abs(a - b) for a, b in zip(losses, base_losses)]
+    norm_rel = [abs(a - b) / b for a, b in zip(norms, base_norms)]
+    same = len({x["replicated_sha256"] for x in lines}) == 1
+    failed = []
+    if loss_diff[0] > MESH_FIRST_LOSS_ATOL:
+        failed.append(f"first loss {loss_diff[0]:.3g} > {MESH_FIRST_LOSS_ATOL}")
+    if max(loss_diff[1:]) > MESH_LOSS_ATOL:
+        failed.append(f"later loss {max(loss_diff[1:]):.3g} > {MESH_LOSS_ATOL}")
+    if max(norm_rel) > MESH_GRAD_NORM_RTOL:
+        failed.append(f"grad norm rel {max(norm_rel):.3g} > {MESH_GRAD_NORM_RTOL}")
+    if not same:
+        failed.append("the ranks' replicated leaves differ")
+    return failed, {"losses": losses, "loss_abs_diff": loss_diff, "grad_norms": norms,
+                    "grad_norm_rel_diff": norm_rel, "replicated_equal": same}
+
+
+def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
+    """Two ranks share the card over gloo and train gqa-2048 at full width
+    through the harness under {"fsdp": 2} and then {"tp": 2}, 1 + 3 steps:
+    mesh_verdict passes (losses and gradient norms within the mesh limits
+    of train's first four, the replicated leaves equal on both ranks);
+    each rank launches K1/K2/K3 as many times a step as one process does
+    (2·L / L / L), under tp 2 at 8 query and 2 KV heads. Then each planted
+    fault of MESH_PLANTS at the same shape, 1 + 2 steps, must fail
+    mesh_verdict. Logs each rank's step ms, host ms in collectives, bytes
+    staged through the host and peak GB (two ranks on one card: no
+    scaling figure)."""
+    spec = json.loads(NORTHSTAR_SPEC.read_text())
+    cfg = preset_from_workload(MESH_WL)
+    n_steps = MESH_WL["steps"] + 1
+    want = {k: v * cfg.n_layers * n_steps for k, v in DENSE_PER_LAYER.items()}
+    d = gang_dir("mesh_train")
+    out, plants = [], {}
+
+    def gang(label, axes, wl, prelude=""):
+        torch.cuda.empty_cache()
+        rcs, secs, texts = run_gang(spec, wl, 2, axes, d / label, GLOO_ENV, timeout=900,
+                                    prelude=prelude)
+        check(rcs == [0, 0], f"mesh_train {label}: exit codes {rcs}:\n"
+              + "\n".join(t[-3000:] for t in texts))
+        lines = rank_lines(texts, f"mesh_train {label}")
+        n = wl["steps"] + 1
+        check(all(len(x["losses"]) == len(x["grad_norms"]) == n for x in lines),
+              f"mesh_train {label}: not {n} losses and grad norms a rank")
+        return lines, secs, texts
+
+    try:
+        for axes in MESH_TRAIN_AXES:
+            label = "_".join(f"{k}{v}" for k, v in axes.items())
+            lines, secs, texts = gang(label, axes, MESH_WL)
+            failed, seen = mesh_verdict(lines, base_losses, base_norms)
+            check(not failed, f"mesh_train {label}: {failed}: {seen} vs train's losses "
+                  f"{base_losses[:n_steps]}, grad norms {base_norms[:n_steps]}")
+            tp = axes.get("tp", 1)
+            heads = [cfg.n_heads // tp, cfg.n_kv_heads // tp]
+            for x in lines:
+                check(x["launches"] == want, f"mesh_train {label}: rank {x['rank']} launches "
+                      f"{x['launches']} != {want}")
+                check(x["flash_fwd_heads"] == heads, f"mesh_train {label}: K1 ran at heads "
+                      f"{x['flash_fwd_heads']}, want {heads}")
+            done = harness_result_done(texts[0], f"mesh_train {label}")
+            out.append({"mesh": axes, **seen,
+                        "step_ms": done["step_ms"], "tokens_per_s": done["tokens_per_s"],
+                        "per_rank": [{k: x[k] for k in ("rank", "step_ms", "collective_s",
+                                                        "collective_calls", "staged_bytes",
+                                                        "peak_gb", "flash_fwd_heads")}
+                                     for x in lines],
+                        "launches_per_rank_per_step": {k: v / n_steps
+                                                       for k, v in lines[0]["launches"].items()},
+                        "seconds": secs})
+        for name, (axes, prelude) in MESH_PLANTS.items():
+            lines, secs, _ = gang(name, axes, MESH_PLANT_WL, prelude)
+            failed, seen = mesh_verdict(lines, base_losses, base_norms)
+            check(bool(failed), f"mesh_train: planted fault {name} passed: {seen}")
+            plants[name] = {"mesh": axes, "caught_by": failed, **seen, "seconds": secs}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "mesh_train", "preset": MESH_WL["preset"], "batch": MESH_WL["batch_size"],
+          "seq": MESH_WL["seq_len"], "backend": "gloo", "ranks": 2, "runs": out,
+          "plants": plants, "train_losses": base_losses[:n_steps],
+          "train_grad_norms": base_norms[:n_steps], "train_step_ms": base_step_ms,
+          "first_loss_atol": MESH_FIRST_LOSS_ATOL, "loss_atol": MESH_LOSS_ATOL,
+          "grad_norm_rtol": MESH_GRAD_NORM_RTOL,
+          "note": "two ranks share one card over gloo: a path check, not a scaling figure",
+          "card": smi})
+    return {"_".join(f"{k}{v}" for k, v in r["mesh"].items()): r["launches_per_rank_per_step"]
+            for r in out}
+
+
+def harness_result_done(text: str, phase: str) -> dict:
+    """The last ``lm done`` line of a worker log: step ms and tokens/s."""
+    done = HARNESS_DONE.findall(text)
+    check(bool(done), f"{phase}: no lm done line:\n{text[-3000:]}")
+    return {"step_ms": float(done[-1][2]), "tokens_per_s": float(done[-1][3])}
+
+
+def phase_resnet_dp(smi, fused_losses):
+    """Two ranks share the card over gloo and train ResNet-50 fused_1x1
+    through the harness under dp 2, the global batch of resnet_train split
+    in two, 1 + 3 steps: the losses within RESNET_AGREE_RTOL of
+    resnet_train's first four; the BN running
+    statistics agree bitwise across the ranks (one digest); K8 launched 36
+    times a step on each rank."""
+    spec = json.loads(RESNET_SPEC.read_text())
+    cfg = replace(ResNetConfig.resnet50(int(RESNET_DP_WL["num_classes"])), fused_1x1=True)
+    per_step = len(fused_1x1_shapes(cfg, RESNET_DP_WL["batch_size"] // 2,
+                                    RESNET_DP_WL["image_size"]))
+    n_steps = RESNET_DP_WL["steps"] + 1
+    d = gang_dir("resnet_dp")
+    try:
+        torch.cuda.empty_cache()
+        rcs, secs, texts = run_gang(spec, RESNET_DP_WL, 2, {"dp": 2}, d, GLOO_ENV,
+                                    timeout=900)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(rcs == [0, 0], "resnet_dp: exit codes " + str(rcs) + ":\n"
+          + "\n".join(t[-3000:] for t in texts))
+    lines = rank_lines(texts, "resnet_dp")
+    losses = lines[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:RESNET_AGREE_STEPS], fused_losses)]
+    check(len(losses) == n_steps and max(rel) <= RESNET_AGREE_RTOL,
+          f"resnet_dp: losses {losses} vs resnet_train's {fused_losses[:RESNET_AGREE_STEPS]}")
+    check(lines[0]["bn_state_sha256"] == lines[1]["bn_state_sha256"],
+          "resnet_dp: the ranks' BN running statistics differ")
+    for x in lines:
+        check(x["fused_linear_stats_launches"] == per_step * n_steps,
+              f"resnet_dp: rank {x['rank']} K8 launches {x['fused_linear_stats_launches']} "
+              f"!= {per_step} x {n_steps}")
+    measured = lines[0]["fused_linear_stats_launches"] / n_steps
+    emit({"phase": "resnet_dp", "mesh": {"dp": 2}, "backend": "gloo",
+          "batch": RESNET_DP_WL["batch_size"], "image": RESNET_DP_WL["image_size"],
+          "losses": losses, "resnet_train_losses": fused_losses[:RESNET_AGREE_STEPS],
+          "loss_rel_diff": rel, "rtol": RESNET_AGREE_RTOL,
+          "bn_state_sha256": lines[0]["bn_state_sha256"],
+          "k8_launches_per_rank_per_step": measured,
+          "per_rank": [{k: x[k] for k in ("rank", "step_ms", "collective_s", "collective_calls",
+                                          "staged_bytes", "peak_gb")} for x in lines],
+          "seconds": secs,
+          "note": "two ranks share one card over gloo: a path check, not a scaling figure",
+          "card": smi})
+    return measured
+
+
+def phase_gang_peer_loss(smi):
+    """Two ranks of tiny LM on the card through the harness; once both
+    have joined and trained a moment, rank 1 is killed (SIGKILL). Rank 0's
+    next collective finds the peer gone: it must exit 138 (the harness's
+    retryable exit, which the controller answers with a gang restart)
+    within DIST_TIMEOUT_S of the kill, not hang."""
+    import signal
+
+    spec = json.loads(NORTHSTAR_SPEC.read_text())
+    d = gang_dir("gang_peer_loss")
+    procs, paths = start_gang(spec, PEER_LOSS_WL, 2, {"dp": 2}, d,
+                              {**GLOO_ENV, "OMP_NUM_THREADS": "1"})
+    try:
+        t0 = time.perf_counter()
+        while not all("joined the gang" in p.read_text() for p in paths):
+            check(all(p.poll() is None for p in procs) and time.perf_counter() - t0 < 300,
+                  "gang_peer_loss: the ranks did not join:\n"
+                  + "\n".join(p.read_text()[-2000:] for p in paths))
+            time.sleep(0.2)
+        time.sleep(5.0)  # both train: tiny's steps take milliseconds
+        check(all(p.poll() is None for p in procs), "gang_peer_loss: a rank ended early:\n"
+              + "\n".join(p.read_text()[-2000:] for p in paths))
+        t_kill = time.perf_counter()
+        os.kill(procs[1].pid, signal.SIGKILL)
+        try:
+            rc0 = procs[0].wait(timeout=DIST_TIMEOUT_S + 30)
+        except subprocess.TimeoutExpired:
+            rc0 = None
+        exit_s = time.perf_counter() - t_kill
+        rc1 = procs[1].wait()
+        text0 = paths[0].read_text()
+    finally:
+        stop_gang(procs)
+        shutil.rmtree(d, ignore_errors=True)
+    check(rc0 == 138 and exit_s <= DIST_TIMEOUT_S,
+          f"gang_peer_loss: rank 0 exit {rc0} {exit_s:.1f} s after the kill:\n{text0[-3000:]}")
+    check("lost a peer of the gang (retryable)" in text0,
+          f"gang_peer_loss: rank 0 did not log the lost peer:\n{text0[-3000:]}")
+    reason = [ln for ln in text0.splitlines() if "lost a peer of the gang" in ln][-1]
+    emit({"phase": "gang_peer_loss", "rank0_exit": rc0, "rank1_exit": rc1,
+          "rank0_exit_s_after_kill": exit_s, "timeout_s": DIST_TIMEOUT_S,
+          "rank0_reason": reason[-300:], "card": smi})
 
 
 def phase_jax_trajectory(dev, smi, artifact=trajectory.ARTIFACT, phase="jax_trajectory"):
@@ -3505,9 +4011,18 @@ def main() -> int:
     run_phase("train_parity", phase_train_parity, dev)
     ft = run_phase("flash_timing", phase_flash_timing, smi)
     run_phase("ckpt_roundtrip", phase_ckpt_roundtrip, run, smi)
+    train_losses, train_norms, train_step_ms = run.losses, run.grad_norms, run.step_s * 1e3
     del run
     torch.cuda.empty_cache()
     run_phase("operator_resume", phase_operator_resume, smi)
+    # multi-process training: the gang's ranks through the harness
+    run_phase("dist_smoke", phase_dist_smoke, smi)
+    run_phase("nccl_world1", phase_nccl_world1, smi, train_losses, train_norms, train_step_ms,
+              dev)
+    torch.cuda.empty_cache()
+    mesh_counts = run_phase("mesh_train", phase_mesh_train, smi, train_losses, train_norms,
+                            train_step_ms)
+    run_phase("gang_peer_loss", phase_gang_peer_loss, smi)
     run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
     run_phase("jax_trajectory_bert", phase_jax_trajectory, dev, smi, trajectory.BERT_ARTIFACT,
               phase="jax_trajectory_bert")
@@ -3568,6 +4083,7 @@ def main() -> int:
     unfused_run, _ = run_phase("resnet_train_unfused", phase_resnet_train, smi, fused=False,
                                phase="resnet_train_unfused")
     run_phase("resnet_agreement", phase_resnet_agreement, fused_losses, unfused_run.losses)
+    dp_k8 = run_phase("resnet_dp", phase_resnet_dp, smi, fused_losses)
     # the yardstick's device time: the host clock moves with the host
     run_phase("resnet_breakdown_unfused", phase_train_breakdown, unfused_run, smi,
               phase="resnet_breakdown_unfused", batch=unfused_run.batch)
@@ -3604,6 +4120,9 @@ def main() -> int:
             "launches": train_counts[counter],
             # the masked LM's run (non-causal, d 64)
             "bert_train_launches": bert_counts[counter],
+            # a rank's launches a step on two ranks under each mesh
+            "mesh_train_launches_per_rank_per_step": {m: c[counter]
+                                                      for m, c in mesh_counts.items()},
             # bf16 (the path's type) against the f32 plain version on the same
             # inputs, over every flash_check case and the train shape; the f32
             # instantiation's error beside it
@@ -3670,6 +4189,8 @@ def main() -> int:
         "ms": flt["ms"], "plain_ms": flt["plain_ms"], "bound_ms": flt["bound_ms"],
         "bound_by": flt["bound_by"], "library_ms": None,
         "per": "one ResNet-50 step (36 launches)",
+        # a rank's launches a step on two ranks under dp 2 (64 images each)
+        "resnet_dp_launches_per_rank_per_step": dp_k8,
         "mm_ms": flt["mm_ms"], "mm_plus_reductions_ms": flt["mm_plus_reductions_ms"],
     })
     emit({"phase": "wall", "total_s": time.perf_counter() - t_start, "phase_s": phase_s})

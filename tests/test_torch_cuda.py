@@ -451,3 +451,48 @@ def test_train_step_card_matches_cpu(dev, over):
     for (k, g), (_, w) in zip(leaves_with_names(card_g), leaves_with_names(cpu_g)):
         err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
         assert err <= PARITY_GRAD_REL, (k, err)
+
+
+def test_nccl_group_of_one_sharded_step_equals_unsharded(dev):
+    """Three AdamW steps of tiny LM (bf16, flash, save_mid) through the
+    sharded trainer as an NCCL group of one, mesh {"fsdp": 1, "tp": 1},
+    and through the unsharded trainer from the same params and tokens:
+    every collective is on an axis of size 1, so the losses are bitwise
+    equal, and K1-K3 run as often on both paths."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.transformer import lm_loss, transformer_logical_axes
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = preset("tiny", attn_impl="flash", remat="save_mid")
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab, (4, 64))).to(dev)
+
+    def train(mesh):
+        trainer = Trainer(lambda p, b, e: lm_loss(p, b, cfg, mesh=mesh), None,
+                          TrainerConfig(learning_rate=3e-3), device=dev, mesh=mesh,
+                          logical_axes=transformer_logical_axes(cfg))
+        state = trainer.state_from_params(tree_map(lambda x: x.clone().to(dev), params))
+        before = fa.flash_fwd_launches
+        losses = []
+        for _ in range(3):
+            state, m = trainer.step(state, tokens)
+            losses.append(float(m["loss"]))
+        return losses, fa.flash_fwd_launches - before
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=60),
+                            device_id=torch.device("cuda", 0))
+    try:
+        sharded = train(build_mesh({"fsdp": 1, "tp": 1}, ranks=[0], device_type="cuda"))
+    finally:
+        dist.destroy_process_group()
+    plain = train(None)
+    assert sharded == plain and sharded[1] == 2 * cfg.n_layers * 3

@@ -237,7 +237,7 @@ def test_unported_moe_paths_raise():
                "w_down": torch.zeros(2, 8, 4)}
     mesh = type("Mesh", (), {"axis_names": ("ep",), "shape": {"ep": 2}})()
     for impl in ("sort", "einsum", "ragged", "gmm"):
-        with pytest.raises(NotImplementedError, match="M8, then M11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
             moe.moe_apply(x, logits, experts, None, mesh, dispatch_impl=impl)
     with pytest.raises(ValueError, match="needs an expert_fn"):
         moe.moe_apply(x, logits, experts, dispatch_impl="sort")

@@ -7,8 +7,13 @@ the port's entrypoint and calls it; the job must reach Succeeded. The jobs
 are tiny and run with ``device: cpu``: the LM trainer, the ResNet trainer,
 the serving workload, and a phoenix job that checkpoints every 2 steps,
 dies retryably (exit 138) at step 4 of its first incarnation, is
-gang-restarted by the controller and resumes from its checkpoint. All four
-are submitted at once to one operator (a module fixture); each test waits
+gang-restarted by the controller and resumes from its checkpoint. Three
+two-process gangs over gloo: the port's smoke job as
+``examples/smoke_local_cpu_torch.json`` ships it, a tiny LM under
+``{"fsdp": 2}``, and a tiny LM under ``{"dp": 2}`` whose rank 1 dies at
+step 3 of its first incarnation: rank 0 sees the lost peer and exits 138,
+the controller restarts the gang, and the job trains to the end. All are
+submitted at once to one operator (a module fixture); each test waits
 for its own.
 """
 
@@ -67,6 +72,14 @@ JOBS = {
                         "device": "cpu"}),
 }
 EVAL_ENTRY = "tf_operator_tpu_torch.workloads.eval:main"
+# two-process gangs: (entrypoint, workload, mesh axes)
+GANG_LM = {**LM, "batch_size": 4}
+GANGS = {
+    "port-lm-fsdp2": ("tf_operator_tpu_torch.workloads.lm:main", GANG_LM, {"fsdp": 2}),
+    "port-lm-peer-loss": ("tf_operator_tpu_torch.workloads.lm:main",
+                          {**GANG_LM, "steps": 6, "fail_at_step": 3, "fail_rank": 1},
+                          {"dp": 2}),
+}
 # the long-running evaluator job's processes take one thread each
 ONE_THREAD = {"port-lm-eval", "port-eval-only"}
 
@@ -125,6 +138,19 @@ def operator(tmp_path_factory):
             elif name == "port-eval-only":
                 job.spec.workload.update(checkpoint_dir=str(tmp / "eval-only-ckpt"),
                                          eval_report=str(tmp / "eval-only-report.json"))
+            store.create(job)
+        with open(os.path.join(ROOT, "examples", "smoke_local_cpu_torch.json")) as f:
+            smoke = TPUJob.from_dict(json.load(f))
+        smoke.spec.replica_specs[ReplicaType.WORKER].template.env.update(PORT_ENV)
+        store.create(smoke)
+        for name, (entry, wl, axes) in GANGS.items():
+            job = TPUJob(metadata=ObjectMeta(name=name), spec=TPUJobSpec(replica_specs={
+                ReplicaType.WORKER: ReplicaSpec(replicas=2, template=ProcessTemplate(
+                    entrypoint=entry, env={**PORT_ENV, "OMP_NUM_THREADS": "1"}))}))
+            job.spec.workload = dict(wl)
+            if "fail_at_step" in wl:
+                job.spec.workload["fail_marker"] = str(tmp / f"{name}-died-once")
+            job.spec.topology.mesh_axes = dict(axes)
             store.create(job)
         yield store, tmp / "logs", ckpt, marker, tmp
     finally:
@@ -216,3 +242,46 @@ def test_port_eval_only_job_scores_existing_checkpoints(operator):
     assert "eval done: 1 checkpoints scored" in text
     scored = json.loads((tmp / "eval-only-report.json").read_text())
     assert list(scored) == ["2"] and np.isfinite(scored["2"])
+
+
+def test_port_smoke_example_gang_succeeds(operator):
+    """examples/smoke_local_cpu_torch.json: two workers over gloo; the
+    chief's checksum is 2 * 64^3, so both ranks' blocks were summed. (The
+    job succeeds with its chief and the controller then deletes rank 1,
+    which may not have logged its own line yet: its log is read for the
+    gang it joined.)"""
+    store, logs = operator[:2]
+    st, text = _succeeded(store, "smoke-torch", logs)
+    assert st.restart_count == 0
+    assert "smoke ok: 2 devices, checksum 524288 (rank 0" in text
+    rank1 = (logs / "default_smoke-torch-worker-1.log").read_text()
+    assert "joined the gang: rank 1 of 2, backend gloo on cpu" in rank1
+
+
+def test_port_two_process_fsdp_lm_succeeds(operator):
+    """A tiny LM gang under {"fsdp": 2}: rank 0 logs the lm done line with
+    the mesh, every rank its lm rank line, each with the same losses."""
+    store, logs = operator[:2]
+    st, text = _succeeded(store, "port-lm-fsdp2", logs)
+    assert st.restart_count == 0
+    assert "lm done: preset=tiny" in text and "mesh={'fsdp': 2}" in text
+    rank1 = (logs / "default_port-lm-fsdp2-worker-1.log").read_text()
+    assert "lm done" not in rank1
+    lines = [json.loads(t.split("lm rank: ", 1)[1].splitlines()[0]) for t in (text, rank1)]
+    assert [x["rank"] for x in lines] == [0, 1]
+    assert lines[0]["losses"] == lines[1]["losses"] and len(lines[0]["losses"]) == 4
+    assert all(np.isfinite(lines[0]["losses"])) and lines[0]["collective_calls"] > 0
+
+
+def test_port_gang_survives_a_lost_peer(operator):
+    """Rank 1 dies at step 3 of the first incarnation; rank 0's next
+    collective finds the peer gone and it exits 138 (not a hang, not a
+    permanent failure); the controller restarts the gang, which trains to
+    the end (no checkpoints: a multi-process job runs without them)."""
+    store, logs = operator[:2]
+    st, text = _succeeded(store, "port-lm-peer-loss", logs)
+    assert st.restart_count >= 1
+    rank1 = (logs / "default_port-lm-peer-loss-worker-1.log").read_text()
+    assert "fault injection: requesting retry at step 3" in rank1
+    assert "lost a peer of the gang (retryable)" in text
+    assert "lm done: preset=tiny" in text

@@ -163,8 +163,13 @@ def test_resnet_workload_main(tmp_path, caplog):
     assert streamed.data["delivered"] == 3 and all(np.isfinite(streamed.losses))
     with pytest.raises(ValueError, match="train_real"):
         wl_mod.run_resnet({**wl, "data": "idx"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        wl_mod.main(type("C", (_Ctx,), {"num_processes": 2})(wl))
+    # a multi-process job with a checkpoint_dir (Queue 1 item 5) and more
+    # than one card a process still raise, before the gang is joined
+    with pytest.raises(NotImplementedError, match="item 5"):
+        wl_mod.main(type("C", (_Ctx,), {"num_processes": 2})(
+            {**wl, "checkpoint_dir": str(tmp_path / "gang")}))
+    with pytest.raises(NotImplementedError, match="one process drives one card"):
+        wl_mod.main(type("C", (_Ctx,), {"num_processes": 2, "chips": 2})(wl))
 
 
 def test_resnet_real_data_path(tmp_path, caplog):

@@ -103,8 +103,17 @@ def test_unported_modes_raise():
                         ({"pp_microbatches": 2}, "M13")):
         with pytest.raises(NotImplementedError, match=match):
             tt.lm_loss(p, tok, tt.preset("tiny", **over))
-    with pytest.raises(NotImplementedError, match="M8"):
-        tt.lm_loss(p, tok, tt.preset("tiny"), mesh=object())
+    # under a mesh: a cp axis (M12), a pp axis (M13), an ep axis or MoE
+    # on more than one device (Queue 1 item 4); no process group is needed
+    # to build a mesh, and the check comes before any collective
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+
+    for axes, cfg, match in (({"cp": 2}, tt.preset("tiny"), "M12"),
+                             ({"pp": 2}, tt.preset("tiny"), "M13"),
+                             ({"ep": 2}, tt.preset("tiny"), "item 4"),
+                             ({"dp": 2}, tt.preset("tiny-moe"), "item 4")):
+        with pytest.raises(NotImplementedError, match=match):
+            tt.lm_loss(p, tok, cfg, mesh=build_mesh(axes, ranks=range(2)))
     with pytest.raises(ValueError, match="unknown remat mode"):
         tt.lm_loss(p, tok, tt.preset("tiny", remat="save_everything"))
     with pytest.raises(ValueError, match="unknown activation"):
@@ -238,5 +247,10 @@ def test_lm_workload_main_and_fault_injection(tmp_path, caplog):
     assert streamed.data["delivered"] == 4 and all(np.isfinite(streamed.losses))
     with pytest.raises(ValueError, match="unknown data mode"):
         lm.run_lm({**wl, "data": "tfrecord"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="M8"):
-        lm.main(type("C", (_Ctx,), {"num_processes": 2})(wl))
+    # a multi-process job with a checkpoint_dir (Queue 1 item 5) and more
+    # than one card a process still raise, before the gang is joined
+    with pytest.raises(NotImplementedError, match="item 5"):
+        lm.main(type("C", (_Ctx,), {"num_processes": 2})(
+            {**wl, "checkpoint_dir": str(tmp_path / "gang")}))
+    with pytest.raises(NotImplementedError, match="one process drives one card"):
+        lm.main(type("C", (_Ctx,), {"num_processes": 2, "chips": 4})(wl))

@@ -31,6 +31,14 @@ Declared differences (ROADMAP Queue 3):
 - The 3x3 and stem convolutions and the head are cuDNN and cuBLAS calls
   (the JAX package leaves them to XLA); the 1x1 convolutions of
   ``fused_1x1`` go through ``ops/fused_linear_stats.py`` (K8 on the card).
+
+Under a mesh (``resnet_forward(..., mesh=)``: this rank's rows of the
+batch; params replicated, ``resnet_logical_axes``) train-mode batch norm
+is synced, as JAX's mean over the sharded batch is: E[x] and E[x²] (or
+the mean and then the mean squared deviation) are averaged over the data
+axes before the affine, and under ``fused_1x1`` K8's column sum and sum
+of squares are summed over them, so the running statistics are the
+global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ import torch.nn.functional as F
 
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
 from tf_operator_tpu_torch.ops.fused_linear_stats import fused_linear_stats
+from tf_operator_tpu_torch.parallel import collectives as coll
+from tf_operator_tpu_torch.parallel.mesh import DATA_AXES
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -136,21 +146,44 @@ def init_resnet(cfg: ResNetConfig, generator: torch.Generator,
     return params, state
 
 
+def resnet_logical_axes(params) -> Any:
+    """Every conv and BN param replicated (all-None axes); only the batch
+    is split. The JAX package's table."""
+    if isinstance(params, dict):
+        return {k: resnet_logical_axes(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [resnet_logical_axes(v) for v in params]
+    return tuple(None for _ in params.shape)
+
+
 # ---------------------------------------------------------------------------
 # batch norm
 # ---------------------------------------------------------------------------
 
 
-def _batch_stats(x, fused_stats: bool):
+def _data_axes(mesh) -> tuple:
+    """The data axes of size > 1 a batch statistic is averaged over."""
+    return tuple(a for a in DATA_AXES if coll.axis_size(mesh, a) > 1)
+
+
+def _batch_stats(x, fused_stats: bool, mesh=None):
     """Per-channel (mean, var) of NHWC x in f32: E[x] and E[x²] in one read
-    (fused), or mean then the two-pass variance."""
+    (fused), or mean then the two-pass variance; over the global batch
+    under a mesh (equal rows per rank: a mean of the ranks' means)."""
     dims = (0, 1, 2)
+    axes = _data_axes(mesh)
     if fused_stats:
         mean = x.mean(dim=dims, dtype=torch.float32)
         m2 = x.float().square().mean(dim=dims)
+        if axes:
+            mean = coll.all_reduce_mean(mean, mesh, axes)
+            m2 = coll.all_reduce_mean(m2, mesh, axes)
         return mean, torch.clamp(m2 - mean.square(), min=0.0)
     xf = x.float()
-    return xf.mean(dim=dims), xf.var(dim=dims, correction=0)
+    if not axes:
+        return xf.mean(dim=dims), xf.var(dim=dims, correction=0)
+    mean = coll.all_reduce_mean(xf.mean(dim=dims), mesh, axes)
+    return mean, coll.all_reduce_mean((xf - mean).square().mean(dim=dims), mesh, axes)
 
 
 def _apply_affine(x, a, b, in_act_dtype: bool):
@@ -161,23 +194,24 @@ def _apply_affine(x, a, b, in_act_dtype: bool):
 
 
 def _batch_norm(x, p, s, train: bool, in_act_dtype: bool = True, fused_stats: bool = True,
-                stats_stop_gradient: Any = False, ghost: bool = False):
+                stats_stop_gradient: Any = False, ghost: bool = False, mesh=None):
     """x: [b, h, w, c] activations. Statistics in f32. Returns (y, new_state).
 
     The JAX package's modes: ``in_act_dtype`` folds the affine in f32 and
     applies it in x's dtype; ``fused_stats`` takes E[x] and E[x²] in one
     read; ``stats_stop_gradient`` True stops the gradient through both
     batch statistics, "var" through the variance only; ``ghost`` normalizes
-    with the previous step's batch statistics (carried in state)."""
+    with the previous step's batch statistics (carried in state). Under
+    ``mesh`` the statistics are the global batch's."""
     if train and ghost:
-        bmean, bvar = _batch_stats(x, fused_stats)
+        bmean, bvar = _batch_stats(x, fused_stats, mesh)
         new_s = {"mean": BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * bmean,
                  "var": BN_MOMENTUM * s["var"] + (1 - BN_MOMENTUM) * bvar,
                  "bmean": bmean, "bvar": bvar}
         a, b = _bn_affine(p, s["bmean"], s["bvar"])  # the previous step's batch stats
         return _apply_affine(x, a, b, in_act_dtype), {k: v.detach() for k, v in new_s.items()}
     if train:
-        mean, var = _batch_stats(x, fused_stats)
+        mean, var = _batch_stats(x, fused_stats, mesh)
         new_s = _bn_update(s, mean, var)
         if stats_stop_gradient:
             if stats_stop_gradient != "var":
@@ -265,9 +299,10 @@ def _stem_s2d(x, w7):
 # ---------------------------------------------------------------------------
 
 
-def _bottleneck(x, bp, bs, stride, train, bn_act, bn_fused, bn_sg=False, bn_ghost=False):
+def _bottleneck(x, bp, bs, stride, train, bn_act, bn_fused, bn_sg=False, bn_ghost=False,
+                mesh=None):
     bn = lambda y, name: _batch_norm(y, bp[name], bs[name], train, bn_act, bn_fused,  # noqa: E731
-                                     bn_sg, bn_ghost)
+                                     bn_sg, bn_ghost, mesh)
     y, s1 = bn(_conv(x, bp["conv1"]), "bn1")
     y, s2 = bn(_conv(torch.relu(y), bp["conv2"], stride), "bn2")
     y, s3 = bn(_conv(torch.relu(y), bp["conv3"]), "bn3")
@@ -279,16 +314,25 @@ def _bottleneck(x, bp, bs, stride, train, bn_act, bn_fused, bn_sg=False, bn_ghos
     return torch.relu(y + shortcut), new_bs
 
 
-def _bottleneck_fused(x, bp, bs, stride, bn_act, bn_fused=True, bn_sg=False):
+def _bottleneck_fused(x, bp, bs, stride, bn_act, bn_fused=True, bn_sg=False, mesh=None):
     """Train-mode bottleneck with the 1x1 convolutions (conv1, conv3, the
     projection) through ``fused_linear_stats``: their BN statistics come
     from the product's epilogue. The same math as _bottleneck with fused
     statistics; only the 3x3 conv and its BN take the plain path. ``bn_sg``
-    applies to the kernel-derived statistics too."""
+    applies to the kernel-derived statistics too. Under ``mesh`` the
+    kernel's column sums are summed over the data axes."""
     b, h, w, cin = x.shape
     flat = x.reshape(b * h * w, cin)  # a view of NHWC x
+    axes = _data_axes(mesh)
+    n_data = 1
+    for a in axes:
+        n_data *= coll.axis_size(mesh, a)
 
     def stats(s, q, rows):
+        if axes:
+            s = coll.all_reduce_sum(s, mesh, axes)
+            q = coll.all_reduce_sum(q, mesh, axes)
+            rows = rows * n_data
         mean = s / rows
         var = torch.clamp(q / rows - mean.square(), min=0.0)
         if bn_sg:
@@ -302,7 +346,7 @@ def _bottleneck_fused(x, bp, bs, stride, bn_act, bn_fused=True, bn_sg=False):
     a1, b1 = _bn_affine(bp["bn1"], mean1, var1)
     y1n = torch.relu(_apply_affine(y1.reshape(b, h, w, -1), a1, b1, bn_act))
     y2n, s2 = _batch_norm(_conv(y1n, bp["conv2"], stride), bp["bn2"], bs["bn2"], True, bn_act,
-                          bn_fused, bn_sg)
+                          bn_fused, bn_sg, mesh=mesh)
     y2n = torch.relu(y2n)
 
     oh, ow = y2n.shape[1], y2n.shape[2]
@@ -328,8 +372,9 @@ def _bottleneck_fused(x, bp, bs, stride, bn_act, bn_fused=True, bn_sg=False):
     return torch.relu(y3n + shortcut), new_bs
 
 
-def resnet_forward(params, state, images, cfg: ResNetConfig, train: bool = True):
-    """images: [b, h, w, 3] -> (logits [b, classes] f32, new_state)."""
+def resnet_forward(params, state, images, cfg: ResNetConfig, train: bool = True, mesh=None):
+    """images: [b, h, w, 3] -> (logits [b, classes] f32, new_state). Under
+    ``mesh`` the images are this rank's rows and train-mode BN is synced."""
     if cfg.bn_ghost_stats and cfg.fused_1x1:
         raise ValueError("bn_ghost_stats does not compose with fused_1x1")
     bn_act, bn_fused = cfg.bn_in_activation_dtype, cfg.bn_fused_stats
@@ -341,7 +386,7 @@ def resnet_forward(params, state, images, cfg: ResNetConfig, train: bool = True)
     else:
         x = _conv(x, params["stem"]["conv"], stride=2)
     x, stem_s = _batch_norm(x, params["stem"]["bn"], state["stem"], train, bn_act, bn_fused,
-                            bn_sg, bn_ghost)
+                            bn_sg, bn_ghost, mesh)
     x = _max_pool_same(torch.relu(x))
     new_state: Dict[str, Any] = {"stem": stem_s}
     fused_1x1 = cfg.fused_1x1 and train  # eval folds the running stats either way
@@ -351,10 +396,10 @@ def resnet_forward(params, state, images, cfg: ResNetConfig, train: bool = True)
             stride = 2 if (si > 0 and bi == 0) else 1
             bp, bs = params[f"stage{si}"][bi], state[f"stage{si}"][bi]
             if fused_1x1:
-                x, new_bs = _bottleneck_fused(x, bp, bs, stride, bn_act, bn_fused, bn_sg)
+                x, new_bs = _bottleneck_fused(x, bp, bs, stride, bn_act, bn_fused, bn_sg, mesh)
             else:
                 x, new_bs = _bottleneck(x, bp, bs, stride, train, bn_act, bn_fused, bn_sg,
-                                        bn_ghost)
+                                        bn_ghost, mesh)
             stage_s.append(new_bs)
         new_state[f"stage{si}"] = stage_s
     x = x.float().mean(dim=(1, 2))

@@ -12,8 +12,22 @@ loss, fused or not, with the MoE router losses and telemetry. Master
 params stay f32 and are cast to ``cfg.dtype`` inside the layer, as in the
 JAX package.
 
+Under a mesh (``mesh``: a DeviceMesh over dp, fsdp and tp; params laid
+out by ``transformer_logical_axes`` and ``parallel.sharding.DEFAULT_RULES``,
+each rank holding its blocks) the model is explicit SPMD: each layer
+all-gathers its fsdp-split leaves inside the layer (a remat region
+gathers again in its recompute, as FSDP does), wq/wk/wv and
+w_gate/w_up are column-parallel behind ``tp_region_enter`` and wo and
+w_down row-parallel before ``tp_region_exit``, attention runs on the
+local batch and heads with no collective (K and V gathered and repeated
+to the query heads first where ``n_kv_heads % tp != 0``), the tied
+embedding is gathered whole for the lookup and the CE (its gradient
+reduce-scattered back over fsdp), and the loss is the global one: its
+numerator and denominator are summed over the data axes.
+
 Not ported yet, and raising where asked for: ring and Ulysses attention
-(ROADMAP M12), meshes and sharding (M8), pipeline parallelism (M13).
+and a cp axis (ROADMAP M12), pipeline parallelism and a pp axis (M13),
+an ep axis or MoE under a mesh of more than one device (Queue 1 item 4).
 
 Declared differences: the masked-LM loss without an explicit ``mask``
 uses a fixed mask drawn with ``np.random.RandomState(0)`` (JAX: the
@@ -43,6 +57,8 @@ from torch.utils.checkpoint import (
 )
 
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.parallel import collectives as coll
+from tf_operator_tpu_torch.parallel.sharding import DEFAULT_RULES, MeshPlan
 
 
 @dataclass(frozen=True)
@@ -274,6 +290,29 @@ def init_transformer_numpy(cfg: TransformerConfig, seed: int) -> Dict[str, Any]:
     return {"embed": embed, "final_norm": np.ones(d, np.float32), "layers": layers}
 
 
+def transformer_logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Logical axis names per param leaf (the params' tree), the JAX
+    package's table."""
+    layers = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed"),
+    }
+    if cfg.n_experts:
+        layers.update({"w_router": ("layers", "embed", "expert"),
+                       "w_gate": ("layers", "expert", "embed", "mlp"),
+                       "w_up": ("layers", "expert", "embed", "mlp"),
+                       "w_down": ("layers", "expert", "mlp", "embed")})
+    else:
+        layers.update({"w_gate": ("layers", "embed", "mlp"),
+                       "w_up": ("layers", "embed", "mlp"),
+                       "w_down": ("layers", "mlp", "embed")})
+    return {"embed": ("vocab", "embed"), "final_norm": ("embed",), "layers": layers}
+
+
 # ---------------------------------------------------------------------------
 # Forward pieces
 # ---------------------------------------------------------------------------
@@ -389,22 +428,67 @@ def _moe_mlp(h, lp, cfg: TransformerConfig):
     return out.reshape(b, t, d), aux
 
 
-def _heads(h, w, cfg: TransformerConfig, rotate: bool):
-    """h @ w split into heads [b, t, n, hd], rotated for q and k."""
+class _ShardedLayer(dict):
+    """One layer's params on a mesh: ``lp[name]`` is the leaf gathered over
+    its fsdp split (tp blocks stay), gathered at first access and kept for
+    this object's life. ``fresh()`` gives an empty one, so each layer call
+    and each remat region (and its recompute) gathers for itself."""
+
+    def __init__(self, local: dict, spmd: "_Spmd") -> None:
+        super().__init__()
+        self.local, self.spmd = local, spmd
+
+    def __missing__(self, name):
+        value = self.spmd.plan.gather(self.local[name], self.spmd.layer_placement[name],
+                                      keep=("tp",))
+        self[name] = value
+        return value
+
+    def fresh(self) -> "_ShardedLayer":
+        return _ShardedLayer(self.local, self.spmd)
+
+
+def _fresh(lp):
+    return lp.fresh() if isinstance(lp, _ShardedLayer) else lp
+
+
+def _tp_enter(lp, h):
+    return coll.tp_region_enter(h, lp.spmd.mesh) if isinstance(lp, _ShardedLayer) else h
+
+
+def _tp_exit(lp, y):
+    return coll.tp_region_exit(y, lp.spmd.mesh) if isinstance(lp, _ShardedLayer) else y
+
+
+def _heads(h, lp, name: str, cfg: TransformerConfig, rotate: bool):
+    """h @ lp[name] split into heads [b, t, n, hd], rotated for q and k.
+    Under tp with n_kv_heads % tp != 0 the K/V columns are gathered over tp,
+    rotated, repeated to the query heads and this rank's heads kept."""
     b, t, _ = h.shape
-    y = (h @ w.to(h.dtype)).reshape(b, t, -1, cfg.head_dim)
+    y = h @ lp[name].to(h.dtype)
+    spmd = lp.spmd if isinstance(lp, _ShardedLayer) else None
+    if spmd is not None and name != "wq" and spmd.kv_repeat:
+        y = coll.all_gather(y, spmd.mesh, "tp", dim=-1)
+        y = y.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+        if rotate:
+            y = _rope(y, cfg.rope_theta)
+        local = cfg.n_heads // spmd.tp
+        first = coll.axis_index(spmd.mesh, "tp") * local
+        y = y.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+        return y[:, :, first:first + local]
+    y = y.reshape(b, t, -1, cfg.head_dim)
     return _rope(y, cfg.rope_theta) if rotate else y
 
 
 def _resid_mid(lp, cfg: TransformerConfig, x, q, k, v):
     """x + attention: the first half of the layer's residual stream."""
     b, t, _ = x.shape
-    return x + _attention(q, k, v, cfg).reshape(b, t, -1) @ lp["wo"].to(x.dtype)
+    return x + _tp_exit(lp, _attention(q, k, v, cfg).reshape(b, t, -1) @ lp["wo"].to(x.dtype))
 
 
 def _swiglu_out(lp, cfg: TransformerConfig, x, z_gate, up):
     """resid_mid + the SwiGLU MLP of its two products: (layer output, None)."""
-    return x + (F.silu(z_gate) * up) @ lp["w_down"].to(x.dtype), None
+    return x + _tp_exit(lp, (F.silu(z_gate) * up) @ lp["w_down"].to(x.dtype)), None
 
 
 def _moe_out(lp, cfg: TransformerConfig, x, h):
@@ -419,12 +503,14 @@ def _moe_out(lp, cfg: TransformerConfig, x, h):
 # mlp_up: the MLP's pre-activation products), the two normed activations
 # between them, and "out", the layer's (output, aux).
 _LAYER_VALUES = {
-    "h_attn": (("x",), lambda lp, cfg, x: _rms_norm(x, lp["attn_norm"], cfg.norm_eps)),
-    "flash_q": (("h_attn",), lambda lp, cfg, h: _heads(h, lp["wq"], cfg, True)),
-    "flash_k": (("h_attn",), lambda lp, cfg, h: _heads(h, lp["wk"], cfg, True)),
-    "flash_v": (("h_attn",), lambda lp, cfg, h: _heads(h, lp["wv"], cfg, False)),
+    "h_attn": (("x",), lambda lp, cfg, x: _tp_enter(
+        lp, _rms_norm(x, lp["attn_norm"], cfg.norm_eps))),
+    "flash_q": (("h_attn",), lambda lp, cfg, h: _heads(h, lp, "wq", cfg, True)),
+    "flash_k": (("h_attn",), lambda lp, cfg, h: _heads(h, lp, "wk", cfg, True)),
+    "flash_v": (("h_attn",), lambda lp, cfg, h: _heads(h, lp, "wv", cfg, False)),
     "resid_mid": (("x", "flash_q", "flash_k", "flash_v"), _resid_mid),
-    "h_mlp": (("resid_mid",), lambda lp, cfg, x: _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)),
+    "h_mlp": (("resid_mid",), lambda lp, cfg, x: _tp_enter(
+        lp, _rms_norm(x, lp["mlp_norm"], cfg.norm_eps))),
     "mlp_gate": (("h_mlp",), lambda lp, cfg, h: h @ lp["w_gate"].to(h.dtype)),
     "mlp_up": (("h_mlp",), lambda lp, cfg, h: h @ lp["w_up"].to(h.dtype)),
     "out": (("resid_mid", "mlp_gate", "mlp_up"), _swiglu_out),
@@ -466,7 +552,7 @@ def _inputs_of(name: str, have, cfg: TransformerConfig) -> list:
 def _layer(x, lp, cfg: TransformerConfig):
     """One decoder layer (pre-norm attention, then the pre-norm MLP):
     (x, aux), aux None for a dense layer."""
-    return _value("out", {"x": x}, lp, cfg)
+    return _value("out", {"x": x}, _fresh(lp), cfg)
 
 
 # Remat policies of the JAX package (name -> the activations it saves).
@@ -550,7 +636,7 @@ def _saving_layer(cfg: TransformerConfig):
         reads = _inputs_of(name, env, cfg)
 
         def run(*tensors):
-            return _value(name, dict(zip(reads, tensors)), lp, cfg)
+            return _value(name, dict(zip(reads, tensors)), _fresh(lp), cfg)
 
         return checkpoint(run, *[env[r] for r in reads], use_reentrant=False)
 
@@ -585,34 +671,87 @@ def _remat_wrap(cfg: TransformerConfig):
     return _saving_layer(cfg)
 
 
-def _check_supported(cfg: TransformerConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("meshes and sharding are not ported yet (ROADMAP M8)")
+def check_supported(cfg: TransformerConfig, mesh) -> None:
+    """Raise for what the port does not run yet, naming its item."""
     if cfg.pp_microbatches:
         raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP M13)")
+    if mesh is None:
+        return
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    for axis, item in (("cp", "context parallelism is not ported yet (ROADMAP M12)"),
+                       ("pp", "pipeline parallelism is not ported yet (ROADMAP M13)"),
+                       ("ep", "expert parallelism is not ported yet (ROADMAP Queue 1 item 4)")):
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(f"a {axis} axis of {sizes[axis]}: {item}")
+    if cfg.n_experts and mesh.mesh.numel() > 1:
+        raise NotImplementedError(
+            "MoE under a mesh of more than one device is not ported yet (ROADMAP Queue 1 "
+            "item 4: the capacity dispatch ranks tokens over the global batch)")
+
+
+class _Spmd:
+    """What the model needs of a mesh: the plan (placements, coordinates,
+    data split) of transformer_logical_axes under DEFAULT_RULES, the tp
+    size, and whether K/V must be repeated before the heads split."""
+
+    def __init__(self, cfg: TransformerConfig, mesh) -> None:
+        self.mesh = mesh
+        self.plan = MeshPlan(mesh, transformer_logical_axes(cfg), DEFAULT_RULES)
+        self.tp = self.plan.size("tp")
+        if cfg.n_heads % self.tp:
+            raise ValueError(f"n_heads {cfg.n_heads} does not split over tp={self.tp}")
+        self.kv_repeat = cfg.n_kv_heads % self.tp != 0
+        # the per-layer leaves' placements, without the [n_layers] dim
+        self.layer_placement = {k: v[1:] for k, v in self.plan.placements["layers"].items()}
+
+    def embed(self, params):
+        """The whole tied table: gathered over fsdp (its gradient
+        reduce-scattered back) and tp (the lookup and the CE run on every
+        tp rank alike, so the backward keeps this rank's rows)."""
+        return self.plan.gather(params["embed"], self.plan.placements["embed"],
+                                replicated=("tp",))
+
+    def final_norm(self, params):
+        return self.plan.gather(params["final_norm"], self.plan.placements["final_norm"])
+
+
+def _spmd(cfg: TransformerConfig, mesh) -> Optional[_Spmd]:
+    check_supported(cfg, mesh)
+    return None if mesh is None else _Spmd(cfg, mesh)
 
 
 def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None,
-                       with_aux: bool = False):
+                       with_aux: bool = False, embed: Optional[torch.Tensor] = None):
     """tokens: [b, t] int -> final-norm hidden states [b, t, d] (cfg.dtype),
     or (h, aux) with ``with_aux``: for MoE configs the per-layer router
     losses averaged over layers, expert_load [L, E] and drop_frac [L];
     None for dense ones. A Python loop over the stacked [L, ...] layer
     leaves. The embedding row is gathered in f32 and then cast (the same
     values as JAX's gather from the cast table), so its gradient
-    accumulates in f32."""
-    _check_supported(cfg, mesh)
+    accumulates in f32. Under a mesh, ``tokens`` are this rank's rows and
+    ``params`` its blocks; ``embed`` is the whole table when the caller
+    gathered it already (the tied CE reads it too)."""
+    spmd = _spmd(cfg, mesh)
+    if embed is None:
+        embed = params["embed"] if spmd is None else spmd.embed(params)
+    return _hidden(params, embed, tokens, cfg, spmd, with_aux)
+
+
+def _hidden(params, embed, tokens, cfg: TransformerConfig, spmd: Optional[_Spmd],
+            with_aux: bool):
     layer_fn = _remat_wrap(cfg)
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = embed[tokens].to(cfg.dtype)
     # unbind once: its backward stacks the L per-layer grads in one op,
     # where indexing leaf[i] per layer would add a full [L, ...] zero-padded
     # grad into the stack L times
     layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
     auxes = []
     for i in range(cfg.n_layers):
-        x, aux = layer_fn(x, {name: leaf[i] for name, leaf in layers.items()})
+        lp = {name: leaf[i] for name, leaf in layers.items()}
+        x, aux = layer_fn(x, lp if spmd is None else _ShardedLayer(lp, spmd))
         auxes.append(aux)
-    h = _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    final_norm = params["final_norm"] if spmd is None else spmd.final_norm(params)
+    h = _rms_norm(x, final_norm, cfg.norm_eps)
     if not with_aux:
         return h
     if not cfg.n_experts:
@@ -627,8 +766,10 @@ def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None,
 
 def transformer_forward(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens: [b, t] int -> logits [b, t, vocab] (f32); tied output head."""
-    x = transformer_hidden(params, tokens, cfg, mesh)
-    return (x @ params["embed"].to(cfg.dtype).T).float()
+    spmd = _spmd(cfg, mesh)
+    embed = params["embed"] if spmd is None else spmd.embed(params)
+    x = transformer_hidden(params, tokens, cfg, mesh, embed=embed)
+    return (x @ embed.to(cfg.dtype).T).float()
 
 
 MASK_TOKEN = 0
@@ -658,33 +799,54 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None, *,
     ``moe_zloss_weight`` times the z-loss, and metrics carries the router
     telemetry beside ``ce_loss``: moe_lb_loss, moe_z_loss (unweighted),
     moe_expert_entropy (mean over layers, nats; uniform routing = ln(E))
-    and moe_drop_frac."""
+    and moe_drop_frac.
+
+    Under a mesh ``tokens`` (and ``mask``) are this rank's rows; the
+    default mask is the global batch's, cut to them; the loss and metrics
+    are the global batch's: sum(w·xent) and sum(w) are summed over the data
+    axes before the division, as JAX's mean over the sharded batch."""
+    spmd = _spmd(cfg, mesh)
     if cfg.causal:
         inputs, targets, weights = tokens, tokens[:, 1:], None
     else:
         if mask is None:
-            mask = mlm_mask(tuple(tokens.shape), float(mask_rate), tokens.device)
+            rows = tokens.shape[0] * (1 if spmd is None else spmd.plan.data_size)
+            mask = mlm_mask((rows,) + tuple(tokens.shape[1:]), float(mask_rate), tokens.device)
+            if spmd is not None:
+                mask = spmd.plan.data_rows(mask)
         mask = mask.to(tokens.device)
         inputs = tokens.masked_fill(mask, MASK_TOKEN)
         targets, weights = tokens, mask
-    h, aux = transformer_hidden(params, inputs, cfg, mesh, with_aux=True)
+    embed = params["embed"] if spmd is None else spmd.embed(params)
+    h, aux = transformer_hidden(params, inputs, cfg, mesh, with_aux=True, embed=embed)
     if cfg.causal:
         h = h[:, :-1]
     b, t, d = h.shape
+    data_axes = () if spmd is None else spmd.plan.data_axes
     if cfg.fused_xent:
-        from tf_operator_tpu_torch.ops.fused_cross_entropy import fused_cross_entropy
+        from tf_operator_tpu_torch.ops.fused_cross_entropy import (
+            fused_cross_entropy,
+            fused_cross_entropy_sums,
+        )
 
-        ce = fused_cross_entropy(h.reshape(b * t, d), params["embed"],
-                                 targets.reshape(b * t),
-                                 weights=None if weights is None else weights.reshape(b * t))
+        flat_w = None if weights is None else weights.reshape(b * t)
+        if data_axes:
+            num, den = fused_cross_entropy_sums(h.reshape(b * t, d), embed,
+                                                targets.reshape(b * t), weights=flat_w)
+            ce = _global_ratio(num, den, spmd)
+        else:
+            ce = fused_cross_entropy(h.reshape(b * t, d), embed, targets.reshape(b * t),
+                                     weights=flat_w)
     else:
-        logits = (h @ params["embed"].to(cfg.dtype).T).float()
+        logits = (h @ embed.to(cfg.dtype).T).float()
         logp = torch.log_softmax(logits, dim=-1)
         ll = torch.gather(logp, -1, targets[..., None].long())[..., 0]
-        if weights is None:
+        w = torch.ones_like(ll) if weights is None else weights.float()
+        if data_axes:
+            ce = _global_ratio(-(ll * w).sum(), w.sum(), spmd)
+        elif weights is None:
             ce = -ll.mean()
         else:
-            w = weights.float()
             ce = -(ll * w).sum() / w.sum().clamp(min=1.0)
     metrics = {"ce_loss": ce}
     if aux is None:
@@ -696,6 +858,15 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None, *,
     metrics.update(moe_lb_loss=aux["lb_loss"], moe_z_loss=aux["z_loss"],
                    moe_expert_entropy=entropy.mean(), moe_drop_frac=aux["drop_frac"].mean())
     return total, metrics
+
+
+def _global_ratio(num, den, spmd: _Spmd):
+    """sum(num) / max(sum(den), 1) over the data axes: num's sum is
+    differentiated (its cotangent summed back over them), den carries no
+    gradient."""
+    axes = spmd.plan.data_axes
+    total = coll.all_reduce_sum(num, spmd.mesh, axes)
+    return total / torch.clamp(coll.sum_no_grad(den.detach(), spmd.mesh, axes), min=1.0)
 
 
 def lm_loss(params, tokens, cfg: TransformerConfig, mesh=None, *,

@@ -283,6 +283,8 @@ def flash_attention_decode(q, k_pages, v_pages, page_table, seq_lens):
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+# (query heads, KV heads) of the forward kernel's last launch
+flash_fwd_heads = None
 
 # Kernel limits (keep in step with csrc/flash_fwd.cu and csrc/flash_bwd.cu):
 # tiles of FLASH_TILE rows (queries or keys), TMA boxes of 64 columns (d
@@ -538,7 +540,7 @@ def _launch(name, ptrs, q, k, causal):
 def flash_fwd_kernel(q, k, v, causal: bool):
     """Launch the forward kernel on CUDA tensors (raises on anything else):
     (o, lse) with lse [b, t, h] f32, a view of the kernel's [b, h, t]."""
-    global flash_fwd_launches
+    global flash_fwd_launches, flash_fwd_heads
     check_flash_args("fwd", q, k, v)
     b, t, h, _ = q.shape
     o = torch.empty_like(q)
@@ -546,6 +548,7 @@ def flash_fwd_kernel(q, k, v, causal: bool):
     if q.numel():
         _launch("flash_fwd", (q, k, v, o, lse), q, k, causal)
         flash_fwd_launches += 1
+        flash_fwd_heads = (h, k.shape[2])
     return o, lse.transpose(1, 2)
 
 

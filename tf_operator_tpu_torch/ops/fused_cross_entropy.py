@@ -89,6 +89,21 @@ def fused_cross_entropy(
     weights: optional [n] per-token weights; the loss is
     ``sum(w * xent) / max(sum(w), 1)``, the plain mean when omitted.
     row_block: tokens per block. Returns a scalar f32 loss."""
+    loss_sum, weight_sum = fused_cross_entropy_sums(x, embed, targets, weights,
+                                                    row_block=row_block)
+    return loss_sum / torch.clamp(weight_sum, min=1.0)
+
+
+def fused_cross_entropy_sums(
+    x: torch.Tensor,
+    embed: torch.Tensor,
+    targets: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    row_block: int = 1024,
+):
+    """``fused_cross_entropy``'s numerator ``sum(w * xent)`` (differentiated)
+    and denominator ``sum(w)``, for a loss whose sums span ranks."""
     n, _ = x.shape
     if n == 0:
         raise ValueError(
@@ -105,5 +120,4 @@ def fused_cross_entropy(
         x = torch.cat([x, x.new_zeros(n_pad - n, x.shape[1])])
         targets = torch.cat([targets, targets.new_zeros(n_pad - n)])
         weights = torch.cat([weights, weights.new_zeros(n_pad - n)])  # pad rows weigh zero
-    loss_sum = _WeightedXentSum.apply(x, embed, targets, weights, r)
-    return loss_sum / torch.clamp(weights.sum(), min=1.0)
+    return _WeightedXentSum.apply(x, embed, targets, weights, r), weights.sum()

@@ -15,7 +15,7 @@ experts as one product per expert over their rows, ``ragged_swiglu``);
 kernel's row block, the three SwiGLU expert products as grouped matmuls,
 the gate weights riding the down projection as its row scale); and
 ``moe_apply``'s branch without a mesh. Not ported yet, and raising: every
-expert-parallel path over a mesh (M8, then M11).
+expert-parallel path over a mesh (ROADMAP Queue 1 item 4).
 
 Declared differences: ``expert_fn`` takes the stacked params and the
 stacked [E, C, d] tokens (one batched product), where JAX vmaps a
@@ -313,7 +313,7 @@ def moe_apply(x, gate_logits, expert_params, expert_fn: Callable = None, mesh=No
     if mesh is not None and axis_name in getattr(mesh, "axis_names", ()) and (
             mesh.shape[axis_name] > 1):
         raise NotImplementedError(
-            "expert parallelism over a mesh is not ported yet (ROADMAP M8, then M11)")
+            "expert parallelism over a mesh is not ported yet (ROADMAP Queue 1 item 4)")
     if dispatch_impl == "gmm":
         if set(expert_params) != GMM_PARAM_KEYS:
             raise ValueError(

@@ -35,7 +35,10 @@ Declared differences from the JAX package:
 
 - Only the npy backend exists: ``backend="auto"`` means npy, and
   ``"orbax"`` raises.
-- The writing world size defaults to 1 (one process; more is ROADMAP M8).
+- The writing world size defaults to 1. With more than one process the
+  npy backend refuses to save, as JAX's does, and ``WorkloadCheckpointer``
+  refuses a ``checkpoint_dir`` (multi-process checkpoints are ROADMAP
+  Queue 1 item 5).
 - ``restore`` takes ``device=``: a template may hold meta tensors (shape
   and dtype only, as ``Trainer.state_template`` returns), and the leaves
   then land on ``device``; otherwise each lands on its template leaf's
@@ -362,6 +365,13 @@ class CheckpointManager:
         if self.readonly:
             raise RuntimeError("CheckpointManager is readonly; refusing to save")
         step = int(step)
+        processes = gang_size()
+        if processes > 1:
+            # as the JAX package's _npy_save: N processes racing on one tmp
+            # dir would corrupt the rename; multi-process saves are ROADMAP
+            # Queue 1 item 5 (the orbax backend is not ported)
+            raise RuntimeError("npy checkpoint backend is single-process only "
+                               f"(process_count={processes})")
         tree = _to_tree(state)
         t0 = time.perf_counter()
         try:
@@ -633,6 +643,13 @@ def _stage_leaves(leaves: list):
     return staged, event
 
 
+def gang_size() -> int:
+    """The process group's world size, 1 without one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
 # ---------------------------------------------------------------------------
 # WorkloadCheckpointer
 # ---------------------------------------------------------------------------
@@ -654,11 +671,17 @@ class WorkloadCheckpointer:
     restores are recorded (``ctx.record_save_stall``,
     ``ctx.record_restore``). Every context attribute is read with getattr,
     so a stub context without them works. ``step_losses`` keeps every
-    step's loss tensor (device scalars, read after the loop)."""
+    step's loss tensor and ``step_grad_norms`` its gradients' global norm
+    where the trainer reports one (device scalars, read after the loop)."""
 
     def __init__(self, workload: Dict[str, Any], ctx=None) -> None:
         self.ctx = ctx
         self.manager: Optional[CheckpointManager] = None
+        processes = max(gang_size(), int(getattr(ctx, "num_processes", 1) or 1))
+        if workload.get("checkpoint_dir") and processes > 1:
+            raise NotImplementedError(
+                f"checkpoints of a {processes}-process job are not ported yet (ROADMAP Queue 1 "
+                "item 5); a multi-process job trains without checkpoint_dir")
         if workload.get("checkpoint_dir"):
             self.manager = CheckpointManager(
                 workload["checkpoint_dir"],
@@ -678,6 +701,7 @@ class WorkloadCheckpointer:
         self.save_stalls: List[float] = []  # each accepted save's caller stall (s)
         self.restore_source = ""  # "peer" | "disk" after a warm restore
         self.step_losses: List[Any] = []
+        self.step_grad_norms: List[Any] = []
 
     # -- peer warm-restore protocol ----------------------------------------
 
@@ -823,6 +847,11 @@ class WorkloadCheckpointer:
         except Exception as exc:  # noqa: BLE001
             log.warning("checkpoint fence on exit failed: %s", exc)
 
+    def _record(self, metrics: dict) -> None:
+        self.step_losses.append(metrics["loss"])
+        if "grad_norm" in metrics:
+            self.step_grad_norms.append(metrics["grad_norm"])
+
     def run_loop(self, trainer, seed, batch, steps: int, on_step=None,
                  device_loop: int = 1):
         """restore-or-init, one warmup step, then ``steps - start_step``
@@ -850,7 +879,7 @@ class WorkloadCheckpointer:
             k = chunk_size(remaining)
             for _ in range(k):
                 state, m = trainer.step(state, pull())
-                self.step_losses.append(m["loss"])
+                self._record(m)
             self.advance(state, loss=m["loss"], n=k)
             self.poll_cadence_directive()
             if on_step is not None:
@@ -861,7 +890,7 @@ class WorkloadCheckpointer:
         try:
             remaining = self.timed_steps(steps)
             state, m = trainer.step(state, pull())  # warmup: first launches, builds
-            self.step_losses.append(m["loss"])
+            self._record(m)
             self.advance(state, loss=m["loss"])
             if on_step is not None:
                 on_step(self._step)

@@ -29,8 +29,10 @@ Declared differences from the JAX package:
   arguments ``rank`` and ``world_size``; each defaults to
   ``torch.distributed``'s when a process group is initialised, else to 0
   and 1. JAX reads ``jax.process_index()`` and ``process_count()``.
-- ``DeviceLoader`` takes a device, not a sharding (one device until
-  ROADMAP M8), and no ``put``: the device alone chooses the staging.
+- ``DeviceLoader`` takes a device, not a sharding (a process drives one
+  device; the workloads pass the data rank and the data-rank count, so tp
+  peers read the same rows, where JAX seeds by process: ROADMAP F3), and
+  no ``put``: the device alone chooses the staging.
 - ``native_augment_batches`` counts the batches the native gather served.
 """
 

@@ -3,8 +3,8 @@
 Port of ``tf_operator_tpu/train/profile.py``: with ``profile_dir`` set in
 the workload dict, the body runs under ``torch.profiler`` (host and, on a
 card, CUDA activity) and a Chrome trace is written to
-``<dir>/0/trace.json`` (the JAX layout's process-0 directory; the port
-runs one process until ROADMAP M8).
+``<dir>/<rank>/trace.json`` (the JAX layout's per-process directory; rank
+0 without a process group).
 """
 
 from __future__ import annotations
@@ -28,7 +28,10 @@ def profile_ctx(trace_dir: Optional[str]) -> Iterator[None]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    path = os.path.join(str(trace_dir), "0")
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    path = os.path.join(str(trace_dir), str(rank))
     os.makedirs(path, exist_ok=True)
     with profile(activities=activities) as prof:
         yield

@@ -1,13 +1,25 @@
-"""Single-device trainer: init, step and multi-step on one card.
+"""Trainer: init and step on one card, or on one rank of a mesh.
 
-Port of ``tf_operator_tpu/train/trainer.py`` without meshes (ROADMAP M8),
-without the compile-overlap machinery, which PyTorch's eager mode does
-not need, and without ``multi_step`` (the step loop runs K steps as a
-Python loop). Usage shape:
+Port of ``tf_operator_tpu/train/trainer.py`` without the compile-overlap
+machinery, which PyTorch's eager mode does not need, and without
+``multi_step`` (the step loop runs K steps as a Python loop). Usage shape:
 
-    trainer = Trainer(loss_fn=..., init_fn=..., config=TrainerConfig(...))
+    trainer = Trainer(loss_fn=..., init_fn=..., config=TrainerConfig(...),
+                      mesh=None, logical_axes=None)
     state = trainer.init(seed)
     state, metrics = trainer.step(state, batch)
+
+Under a mesh (a DeviceMesh; ``logical_axes`` and ``rules`` place each
+leaf, a leaf without logical axes is replicated) each rank inits the
+whole params from the one seed and keeps its blocks, so the values equal
+the single-device init; optimizer moments live on the blocks; ``batch``
+is this rank's rows. The loss returns the global value, and each
+collective in it sums its cotangent back over the data axes (JAX's
+transposes), so a rank's gradient is the data-rank count times its share:
+the fsdp gather's backward reduce-scatters it, the step sums it over the
+data axes a leaf is not split on (one flat all-reduce per bucket) and
+divides by the count. The global-norm clip sums the squares of each
+leaf's block over exactly the axes the leaf is split on.
 
 ``loss_fn(params, batch, extra) -> loss`` or ``(loss, new_extra)``;
 ``init_fn(generator) -> params`` or ``(params, extra)``, where the
@@ -39,6 +51,17 @@ import torch
 
 from tf_operator_tpu_torch.compat import tree_map
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
+from tf_operator_tpu_torch.parallel import collectives as coll
+from tf_operator_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    MeshPlan,
+    ShardingRules,
+    shard_tensor,
+    split_axes,
+)
+
+# Elements of one flat gradient all-reduce (f32: 256 MB).
+GRAD_BUCKET_ELEMS = 1 << 26
 
 
 @dataclass
@@ -104,6 +127,16 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _leaves_of_placements(tree) -> list:
+    """The placements of a placements tree in _leaves order (a placement
+    is a tuple, so only dicts and lists are walked)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of_placements(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves_of_placements(v)]
+    return [tree]
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -137,10 +170,12 @@ def learning_rate_at(cfg: TrainerConfig, count: int) -> float:
 
 
 class Trainer:
-    """init/step over a params tree of f32 tensors on one device."""
+    """init/step over a params tree of f32 tensors on one device, or this
+    rank's blocks of it on a mesh."""
 
     def __init__(self, loss_fn: Callable, init_fn: Callable,
-                 config: Optional[TrainerConfig] = None, device: DeviceLike = None):
+                 config: Optional[TrainerConfig] = None, device: DeviceLike = None,
+                 mesh=None, logical_axes: Any = None, rules: ShardingRules = DEFAULT_RULES):
         self.config = config if config is not None else TrainerConfig()
         if self.config.optimizer not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {self.config.optimizer!r}")
@@ -148,7 +183,25 @@ class Trainer:
         self.loss_fn = loss_fn
         self.init_fn = init_fn
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.plan = None if mesh is None else MeshPlan(mesh, logical_axes, rules)
         self._template: Optional[TrainState] = None
+
+    def _placements(self, params) -> list:
+        """Each leaf's placement in _leaves order (replicated without
+        logical axes)."""
+        if self.plan.placements is None:
+            return [(None,) * p.dim() for p in _leaves(params)]
+        return _leaves_of_placements(self.plan.placements)
+
+    def shard(self, params):
+        """This rank's blocks of a whole params tree (copies)."""
+        if self.plan is None:
+            return params
+        leaves = iter(self._placements(params))
+        order = {id(p): next(leaves) for p in _leaves(params)}
+        return tree_map(lambda p: shard_tensor(p, self.mesh, order[id(p)], self.plan.rank)
+                        .contiguous().clone(), params)
 
     # ---- init -----------------------------------------------------------
 
@@ -166,10 +219,11 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         out = self.init_fn(gen)
         params, extra = out if isinstance(out, tuple) else (out, None)
-        return self.state_from_params(params, extra)
+        return self.state_from_params(self.shard(params), extra)
 
     def state_from_params(self, params, extra=None) -> TrainState:
-        """A fresh TrainState (zero moments, step 0) around given params."""
+        """A fresh TrainState (zero moments, step 0) around given params
+        (this rank's blocks, under a mesh)."""
         params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         return TrainState(params, self.init_opt_state(params), 0, extra)
 
@@ -235,14 +289,66 @@ class Trainer:
         return loss_sum * inv, extra
 
     @torch.no_grad()
+    def _reduce_grads(self, params: list) -> None:
+        """Sum each leaf's gradient over the data axes it is not split on
+        (bucketed flat all-reduces), then divide by the data-rank count."""
+        plan = self.plan
+        if not plan.data_axes:
+            return
+        buckets: Dict[tuple, list] = {}
+        for p, placement in zip(params, self._placements_cache):
+            split = {a for part in placement for a in split_axes(part)}
+            axes = tuple(a for a in plan.data_axes if a not in split)
+            if axes:
+                buckets.setdefault(axes, []).append(p.grad)
+        for axes, grads in buckets.items():
+            start = 0
+            while start < len(grads):
+                group, n = [], 0
+                while start < len(grads) and (not group or n + grads[start].numel()
+                                              <= GRAD_BUCKET_ELEMS):
+                    group.append(grads[start])
+                    n += grads[start].numel()
+                    start += 1
+                flat = coll.sum_no_grad(torch.cat([g.reshape(-1) for g in group]),
+                                        self.mesh, axes)
+                for g, part in zip(group, flat.split([g.numel() for g in group])):
+                    g.copy_(part.view_as(g))
+        n_data = plan.data_size
+        for p in params:
+            p.grad.mul_(1.0 / n_data)
+
+    def _global_norm(self, grads: list):
+        """The global norm of the gradients: per-leaf norms, those of split
+        leaves summed (as squares) over the axes each is split on."""
+        norms = [torch.linalg.vector_norm(g) for g in grads]
+        if self.plan is not None:
+            groups: Dict[tuple, list] = {}
+            for i, placement in enumerate(self._placements_cache):
+                axes = tuple(a for part in placement for a in split_axes(part)
+                             if self.plan.size(a) > 1)
+                if axes:
+                    groups.setdefault(axes, []).append(i)
+            for axes, idx in groups.items():
+                sq = coll.sum_no_grad(torch.stack([norms[i] for i in idx]).square(),
+                                      self.mesh, axes)
+                for i, v in zip(idx, sq.sqrt().unbind(0)):
+                    norms[i] = v
+        return torch.linalg.vector_norm(torch.stack(norms))
+
+    @torch.no_grad()
     def _apply(self, state: TrainState) -> None:
         cfg = self.config
         params = _leaves(state.params)
+        if self.plan is not None:
+            self._placements_cache = self._placements(state.params)
+            self._reduce_grads(params)
         grads = [p.grad for p in params]
+        norm = None
         if cfg.grad_clip:
             # optax clip_by_global_norm: g if norm < max else g / norm * max,
             # decided on the device (no host sync)
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            norm = self._global_norm(grads)
             factor = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
                                  cfg.grad_clip / norm)
             for g in grads:
@@ -269,9 +375,40 @@ class Trainer:
         opt["count"] = count + 1
         for p in params:
             p.grad = None
+        return norm
+
+    def replicated_leaves(self, params) -> list:
+        """The leaves no mesh axis of size above 1 splits (every leaf
+        without a mesh), in tree order: whole on every rank, and the same
+        bytes on every rank of a sound run."""
+        if self.plan is None:
+            return _leaves(params)
+        return [p for p, placement in zip(_leaves(params), self._placements(params))
+                if not any(self.plan.size(a) > 1 for part in placement
+                           for a in split_axes(part))]
+
+    def gradients(self, state: TrainState, batch):
+        """(loss, grads) of one batch without an update: the gradient tree
+        the step would clip and apply (this rank's blocks, reduced over the
+        data axes, under a mesh)."""
+        loss, _ = self._grads(state, batch)
+        params = _leaves(state.params)
+        if self.plan is not None:
+            self._placements_cache = self._placements(state.params)
+            self._reduce_grads(params)
+        grads = tree_map(lambda p: p.grad.detach().clone(), state.params)
+        for p in params:
+            p.grad = None
+        return loss, grads
 
     def step(self, state: TrainState, batch):
-        """One update: (state, {"loss": f32 scalar tensor}), no host sync."""
+        """One update: (state, {"loss": f32 scalar tensor}, and the
+        gradients' global norm before the clip as ``grad_norm`` when one is
+        set), no host sync. Under a mesh ``batch`` is this rank's rows and
+        the loss the global batch's."""
         loss, extra = self._grads(state, batch)
-        self._apply(state)
-        return TrainState(state.params, state.opt_state, state.step + 1, extra), {"loss": loss}
+        norm = self._apply(state)
+        metrics = {"loss": loss}
+        if norm is not None:
+            metrics["grad_norm"] = norm
+        return TrainState(state.params, state.opt_state, state.step + 1, extra), metrics

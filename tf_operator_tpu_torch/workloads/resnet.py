@@ -1,13 +1,19 @@
 """ResNet training workload on the port (operator-launchable).
 
 Port of ``tf_operator_tpu/workloads/resnet.py``: trains a ResNet variant
-with the single-device Trainer (SGD, momentum 0.9, no clip) and logs the
-JAX workload's line: loss, step ms, images/s and MFU
+with the Trainer (SGD, momentum 0.9, no clip), on one card or on each
+rank of the job's mesh (the batch split over dp and fsdp, the params
+replicated, batch norm synced: ``models/resnet.py``), and logs the JAX
+workload's line: loss, step ms, images/s (the global batch's) and MFU
 (``resnet_train_flops``, 3x the forward). The operator launches
 ``tf_operator_tpu_torch.workloads.resnet:main`` like any entrypoint;
 ``main`` uses the context only through its attributes (``workload``,
-``num_processes``, ``process_id``, ``report_eval_metrics`` and the
-checkpointer's optional ones). Checkpoints hold the BN running
+``num_processes``, ``process_id``, ``coordinator_address``,
+``mesh_axes``, ``dcn_mesh_axes``, ``chips``, ``report_eval_metrics`` and
+the checkpointer's optional ones); a lost peer exits 138. Under a mesh
+only rank 0 logs the ``resnet done`` line, with the mesh, and every rank
+an ``resnet rank`` line (losses, K8 launches, a digest of its BN state,
+peak memory, collective seconds, staged bytes). Checkpoints hold the BN running
 statistics as ``extra``; a job whose checkpoints already cover its budget
 returns at once, a restarted one resumes from its latest checkpoint.
 
@@ -30,9 +36,11 @@ num_classes, lr, variant, data, data_dir, augment, crop_padding, flip,
 target_accuracy, eval_batch_size, device_loop, profile_dir,
 checkpoint_dir, checkpoint_every, checkpoint_keep, checkpoint_async,
 checkpoint_backend) plus ``device`` (default ``cuda``). As in the JAX
-package, ``ResNetConfig.fused_1x1`` is not a workload key: ``run_resnet``
-and ``train_real`` take a config that overrides the one built from
-``wl``, as ``bench.py`` sets it. Declared differences from the JAX
+package's workload, ``ResNetConfig.fused_1x1`` is set in code:
+``run_resnet`` and ``train_real`` take a config that overrides the one
+built from ``wl``, as ``bench.py`` sets it; the port also reads a
+``fused_1x1`` workload key, so a job launched by the operator can ask for
+it. Declared differences from the JAX
 workload:
 
 - ``data: fixed`` draws its images with
@@ -46,23 +54,36 @@ workload:
   ResNet workload hands it none.
 - ``train_real`` times its steps after the first on the host clock and
   logs each cadence line's loss one step late (no sync a step).
+- Under a mesh the fixed batch is drawn whole and each rank keeps its
+  data rank's rows; the loaders read as data rank of the data-rank count.
 - Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
-  means npy), more than one process (M8).
+  means npy), checkpoints of a multi-process job (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
 from tf_operator_tpu_torch.device import DeviceLike, resolve_device
-from tf_operator_tpu_torch.models.resnet import ResNetConfig, init_resnet, resnet_forward
+from tf_operator_tpu_torch.models.resnet import (
+    ResNetConfig,
+    init_resnet,
+    resnet_forward,
+)
+from tf_operator_tpu_torch.ops import fused_linear_stats as fls
+from tf_operator_tpu_torch.parallel import collectives as coll
+from tf_operator_tpu_torch.parallel.mesh import mesh_shape
+from tf_operator_tpu_torch.parallel.sharding import MeshPlan
+from tf_operator_tpu_torch.rendezvous import context as rdv
 from tf_operator_tpu_torch.train.checkpoint import CheckpointManager, WorkloadCheckpointer
 from tf_operator_tpu_torch.train.data import (
     AugmentedImages,
@@ -71,7 +92,6 @@ from tf_operator_tpu_torch.train.data import (
     SyntheticImages,
     local_loader,
     prepare_classification_images,
-    process_rank,
 )
 from tf_operator_tpu_torch.train.metrics import mfu, resnet_train_flops
 from tf_operator_tpu_torch.train.profile import profile_ctx
@@ -82,14 +102,16 @@ log = logging.getLogger("tpujob.resnet")
 
 def resnet_config_from_workload(wl: dict) -> ResNetConfig:
     """ResNetConfig from the workload dict: ``variant`` (resnet50, resnet18
-    or tiny) with ``num_classes``."""
+    or tiny) with ``num_classes``, and the port's own key ``fused_1x1``
+    (default off; the JAX package sets it only in code)."""
     classes = int(wl.get("num_classes", 1000))
     variant = wl.get("variant", "resnet50")
-    return {
+    cfg = {
         "resnet50": ResNetConfig.resnet50,
         "resnet18": ResNetConfig.resnet18,
         "tiny": ResNetConfig.tiny,
     }[variant](classes)
+    return replace(cfg, fused_1x1=True) if wl.get("fused_1x1") else cfg
 
 
 def fixed_batch(batch: int, image_size: int, classes: int, device):
@@ -101,12 +123,17 @@ def fixed_batch(batch: int, image_size: int, classes: int, device):
     return torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
 
 
-def resnet_loss(params, batch, state, cfg: ResNetConfig):
-    """Mean cross-entropy of a train-mode forward, and the new BN state."""
+def resnet_loss(params, batch, state, cfg: ResNetConfig, mesh=None):
+    """Mean cross-entropy of a train-mode forward, and the new BN state;
+    under a mesh the global batch's mean (equal rows a rank)."""
     images, labels = batch
-    logits, new_state = resnet_forward(params, state, images, cfg, train=True)
+    logits, new_state = resnet_forward(params, state, images, cfg, train=True, mesh=mesh)
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(1, labels[:, None]).mean(), new_state
+    loss = -logp.gather(1, labels[:, None]).mean()
+    if mesh is not None:
+        plan = MeshPlan(mesh)
+        loss = coll.all_reduce_mean(loss, mesh, plan.data_axes)
+    return loss, new_state
 
 
 @dataclass
@@ -127,38 +154,66 @@ class ResNetRun:
     data: Optional[dict] = None  # DeviceLoader.stats() of a stream or real run
     accuracy: Optional[float] = None  # test accuracy of a real run
     eval_s: Optional[float] = None  # host s of that scoring
+    mesh: Any = None  # the DeviceMesh of a sharded run
 
     @property
     def images_per_s(self) -> Optional[float]:
+        """Images of the global batch a second."""
         return self.images_per_step / self.step_s if self.step_s else None
 
+    @property
+    def n_devices(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.mesh.numel())
+
     def mfu(self) -> Optional[float]:
-        """MFU against the card's peak; None off CUDA or untimed."""
+        """MFU against the peak of the mesh's cards; None off CUDA or
+        untimed."""
         if self.step_s is None or self.device.type != "cuda":
             return None
-        return mfu(self.flops, self.step_s, 1, self.device)
+        return mfu(self.flops, self.step_s, self.n_devices, self.device)
 
 
-def resnet_trainer(wl: dict, cfg: ResNetConfig, device: torch.device) -> Trainer:
-    """The workload's Trainer: SGD (momentum 0.9) at ``lr``, no clip."""
+def resnet_trainer(wl: dict, cfg: ResNetConfig, device: torch.device, mesh=None) -> Trainer:
+    """The workload's Trainer: SGD (momentum 0.9) at ``lr``, no clip. Under
+    a mesh it gets no logical axes, as the JAX workload's gets none, so
+    every leaf is replicated (``resnet_logical_axes``' table)."""
     return Trainer(
-        loss_fn=lambda params, data, state: resnet_loss(params, data, state, cfg),
+        loss_fn=lambda params, data, state: resnet_loss(params, data, state, cfg, mesh),
         init_fn=lambda gen: init_resnet(cfg, gen, device),
         config=TrainerConfig(optimizer="sgd", learning_rate=float(wl.get("lr", 0.1)),
                              grad_clip=None),
-        device=device,
+        device=device, mesh=mesh,
     )
+
+
+def bn_digest(state) -> str:
+    """sha256 of the BN state's bytes, leaf by leaf in tree order: ranks
+    whose running statistics agree bitwise give the same digest."""
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+
+    walk(state)
+    return h.hexdigest()
 
 
 def run_resnet(wl: dict, device: DeviceLike = None,
                cfg: Optional[ResNetConfig] = None,
-               ckpt: Optional[WorkloadCheckpointer] = None) -> ResNetRun:
+               ckpt: Optional[WorkloadCheckpointer] = None, mesh=None) -> ResNetRun:
     """Build the model from ``wl`` (or take ``cfg``), train ``steps`` timed
     steps after one warmup step (from the latest checkpoint, when
     ``checkpoint_dir`` holds one) on ``data: fixed`` or ``stream``, and
     return a ResNetRun. ``device`` overrides the workload's ``device`` key
     (default ``cuda``); ``ckpt`` is the checkpointer to use (by default one
-    built from ``wl``)."""
+    built from ``wl``); ``mesh`` splits the batch over its data axes."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     steps = max(2, int(wl.get("steps", 20)))
     batch = int(wl.get("batch_size", 128))
@@ -170,16 +225,20 @@ def run_resnet(wl: dict, device: DeviceLike = None,
         raise ValueError(f"run_resnet takes data: fixed or stream, not {data_mode!r} "
                          "(idx trains through train_real)")
     ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
-    trainer = resnet_trainer(wl, cfg, dev)
+    trainer = resnet_trainer(wl, cfg, dev, mesh)
+    plan = None if mesh is None else MeshPlan(mesh)
     fixed = fixed_batch(batch, image_size, classes, dev)
+    if plan is not None:
+        fixed = tuple(plan.data_rows(x) for x in fixed)
     loader = None
     if data_mode == "stream":
-        # batch_size is global; local_loader splits it across processes
-        # with rank-distinct data; skip= keeps a resumed incarnation from
-        # replaying the batches its checkpoint's steps consumed
+        # batch_size is global; local_loader splits it across the data
+        # ranks with rank-distinct data; skip= keeps a resumed incarnation
+        # from replaying the batches its checkpoint's steps consumed
+        rank, world = (0, 1) if plan is None else (plan.data_index, plan.data_size)
         loader = local_loader(SyntheticImages, batch, dev, min_examples=64,
                               image_size=image_size, num_classes=classes,
-                              skip=ckpt.resume_step())
+                              skip=ckpt.resume_step(), rank=rank, world_size=world)
         data = ((b["image"], b["label"].long()) for b in loader)
     else:
         data = fixed
@@ -195,7 +254,7 @@ def run_resnet(wl: dict, device: DeviceLike = None,
         losses=[float(x) for x in ckpt.step_losses], timed=timed, step_s=step_s,
         images_per_step=batch, device=dev,
         flops=resnet_train_flops(cfg.flops_per_image(image_size), batch),
-        data=None if loader is None else loader.stats(),
+        data=None if loader is None else loader.stats(), mesh=mesh,
     )
 
 
@@ -248,19 +307,21 @@ def test_split(data_dir: str, image_size: int) -> tuple:
 
 
 def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] = None,
-               ctx: Any = None) -> ResNetRun:
+               ctx: Any = None, mesh=None) -> ResNetRun:
     """The real-image path: idx files -> prepare (3 channels, upsample) ->
     augment -> DeviceLoader -> Trainer -> periodic checkpoints -> eval-mode
     test accuracy -> ``ctx.report_eval_metrics`` (when the context has it)
-    and the ``target_accuracy`` gate."""
+    and the ``target_accuracy`` gate. Under a mesh each rank reads as its
+    data rank of the data-rank count."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     cfg = cfg if cfg is not None else resnet_config_from_workload(wl)
-    trainer = resnet_trainer(wl, cfg, dev)
+    trainer = resnet_trainer(wl, cfg, dev, mesh)
     global_batch = int(wl.get("batch_size", 128))
     image_size = int(wl.get("image_size", 32))
     epochs = max(1, int(wl.get("epochs", 5)))
     target = float(wl.get("target_accuracy", 0.0))
-    rank, n_proc = process_rank()
+    plan = None if mesh is None else MeshPlan(mesh)
+    rank, n_proc = (0, 1) if plan is None else (plan.data_index, plan.data_size)
     if global_batch % n_proc:
         raise ValueError(f"batch_size {global_batch} % {n_proc} processes != 0")
     ds = MnistIdxDataset(wl["data_dir"], global_batch // n_proc, split="train", seed=rank)
@@ -339,30 +400,54 @@ def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] 
         losses=[float(x) for x in losses], timed=total - 1, step_s=step_s,
         images_per_step=global_batch, device=dev,
         flops=resnet_train_flops(cfg.flops_per_image(image_size), global_batch),
-        data=loader.stats(), accuracy=acc, eval_s=eval_s,
+        data=loader.stats(), accuracy=acc, eval_s=eval_s, mesh=mesh,
     )
 
 
+def rank_line(run: ResNetRun, rank: int) -> dict:
+    """What one rank of a run reports: its losses, its K8 launches (warmup
+    included), a digest of its BN state, peak memory, host seconds in
+    collectives and the bytes it staged through the host."""
+    on_card = run.device.type == "cuda"
+    return {"rank": rank, "losses": run.losses,
+            "step_ms": None if run.step_s is None else run.step_s * 1e3,
+            "fused_linear_stats_launches": fls.fused_linear_stats_launches,
+            "bn_state_sha256": bn_digest(run.state.extra),
+            "peak_gb": torch.cuda.max_memory_allocated(run.device) / 1e9 if on_card else None,
+            "collective_s": coll.collective_s, "collective_calls": coll.collective_calls,
+            "staged_bytes": coll.staged_bytes}
+
+
+@rdv.retry_on_peer_loss
 def main(ctx) -> None:
     wl = ctx.workload
-    if int(getattr(ctx, "num_processes", 1) or 1) > 1:
-        raise NotImplementedError("multi-process training is not ported yet (ROADMAP M8)")
+    # refuses a multi-process checkpoint_dir (ROADMAP Queue 1 item 5)
+    # before the gang is joined
     ckpt = WorkloadCheckpointer(wl, ctx=ctx)
     steps = max(2, int(wl.get("steps", 20)))
     if ckpt.is_complete(steps):
         log.info("already complete (budget %d); nothing to do", steps)
         return
+    dev = rdv.local_device(ctx, wl.get("device", "cuda"))
+    mesh = rdv.build_mesh(ctx, dev) if rdv.initialize_distributed(ctx, dev) else None
+    rank = rdv.process_id(ctx)
     if wl.get("data") == "idx":
-        run = train_real(wl, ctx=ctx)
+        run = train_real(wl, device=dev, ctx=ctx, mesh=mesh)
     else:
-        run = run_resnet(wl, ckpt=ckpt)
+        run = run_resnet(wl, device=dev, ckpt=ckpt, mesh=mesh)
+    if mesh is not None:
+        log.info("resnet rank: %s", json.dumps(rank_line(run, rank)))
+        rdv.leave_gang()
+        if rank != 0:
+            return
     if run.step_s is None:
         log.info("resnet done: loss=%.4f (no timed steps remained)", run.loss)
         return
     m = run.mfu()
     log.info(
-        "resnet done: loss=%.4f step=%.2fms imgs/s=%.0f mfu=%s (1 chip, %s)",
+        "resnet done: loss=%.4f step=%.2fms imgs/s=%.0f mfu=%s (%d chip%s, %s)%s",
         run.loss, run.step_s * 1e3, run.images_per_s,
-        "n/a" if m is None else f"{m:.3f}",
+        "n/a" if m is None else f"{m:.3f}", run.n_devices, "" if run.n_devices == 1 else "s",
         torch.cuda.get_device_name(run.device) if run.device.type == "cuda" else "cpu",
+        "" if run.mesh is None else f" mesh={mesh_shape(run.mesh)}",
     )
