@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (dense, masked-LM,
 every remat policy, MoE under every dispatch, and ResNet; one process and
-two ranks sharing the card under a mesh), its input pipeline and its
-Evaluator on one NVIDIA GPU and check them.
+two ranks sharing the card under fsdp, tp, cp and ep meshes), its input
+pipeline and its Evaluator on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
 
@@ -101,8 +101,16 @@ Training path:
     mesh limits of phase 9's, the replicated leaves equal on both ranks,
     K1-K3 2·L / L / L a rank and step, K1 at 8 and 2 heads under tp; step
     ms, host seconds in collectives, bytes staged through the host, peak
-    GB a rank; then a planted fault of each mesh's gradient path, which
-    must fail those limits); ``gang_peer_loss`` (tiny LM on two ranks,
+    GB a rank; then a planted fault of each mesh's gradient path at 2
+    layers, which must fail those limits against one process at that cut,
+    beside a sound run of each mesh at the cut, which must pass them, the
+    four gangs at once); ``cp_train`` (gqa-2048 on two ranks under cp 2,
+    each holding 1,024 positions of every row, a gang with ring and one
+    with Ulysses attention at once, 1 + 2 steps: the same limits against
+    phase 9's, K1-K3 as the hop schedule says: under ring rank r runs r + 1
+    hops a layer at 16 and 4 heads, under Ulysses one whole-sequence
+    attention on 8 and 2 heads; bytes staged and sent through all_to_all);
+    ``gang_peer_loss`` (tiny LM on two ranks,
     rank 1 killed: rank 0 exits 138 within the gang's timeout). Two ranks
     on one card are a path check, not a scaling figure.
 12c. ``jax_trajectory``: gqa-2048 at full width and depth in f32 (TF32
@@ -189,6 +197,21 @@ MoE training path:
     gmm (K5, K6) in bf16 within gmm_check's bf16 limit. Then
     ``train_parity_{sort,einsum,ragged}``: phase 11's checks on
     ``tiny-moe`` (top-2, capacity factor 0.5) under each dispatch.
+17b. ``ep_train``: moe-small on two ranks sharing the card under ep 2
+    (4 experts and half of the tokens a rank; the gmm and sort gangs at
+    once, four ranks on the card), gmm for 1 + 3 steps: losses
+    and gradient norms within the mesh limits of phase 15's first four,
+    the replicated leaves equal on both ranks, each rank's K1-K3 and
+    K5/K6/K7a/K7b launches a step equal to one process's; the occupied
+    share of a rank's received blocks and its all_to_all bytes. Then sort
+    at capacity factor 0.5 (choices drop) for 1 + 2 steps: each rank's
+    layer-0 output of the first step against a plain f32 recompute of its
+    per-shard queues (EP_LAYER_*), the same drop fraction, above 0, no
+    grouped-matmul launch.
+    ``ep_cp_plants``: at 2 layers against one process's run of the same
+    cut, the gmm receiver's block map built from its own counts (ep 2)
+    and the ring's causal skip inverted (cp 2): each must fail the mesh
+    limits, and the same two runs without the fault must pass them.
 18. ``gmm_timing``: the four kernels at the moe_train shapes beside their
     bounds, their plain versions and ``torch._grouped_mm`` on the same
     expert groups (or one ``torch.mm`` of the same FLOPs where the card's
@@ -1894,11 +1917,12 @@ def phase_flash_timing(smi, b=6, t=2048, h=16, h_kv=4, d=128, dev="cuda"):
     return out
 
 
-def flash_work(b, t, h, h_kv, d):
+def flash_work(b, t, h, h_kv, d, causal=True):
     """{kind: (operations, bytes)} of the three flash kernels at a bf16
-    causal shape: the products on the live (query, key) pairs, each input
-    read once and each output written once."""
-    pairs = b * h * t * (t + 1) // 2  # live (query, key) pairs under causal masking
+    shape: the products on the live (query, key) pairs, each input read
+    once and each output written once."""
+    # live (query, key) pairs: under causal masking the lower triangle
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     qb, kvb, rowb = b * t * h * d * 2, b * t * h_kv * d * 2, b * h * t * 4
     return {
         "fwd": (4 * d * pairs, qb + 2 * kvb + qb + rowb),
@@ -1916,18 +1940,18 @@ def bound_of(ops, nbytes):
             "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def bwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
-    """K2 and K3 at another shape (bf16, causal): checked against their
-    plain versions, then timed beside their bounds and SDPA's backward
-    (dq, dk and dv in one call)."""
+def bwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda", causal=True):
+    """K2 and K3 at another shape (bf16, a nonzero lse cotangent in delta):
+    checked against their plain versions, then timed beside their bounds
+    and SDPA's backward (dq, dk and dv in one call)."""
     q, k, v, do, dlse = flash_case(rng, b, t, h, h_kv, d, torch.bfloat16, dev)
-    o, lse = fa.flash_fwd_kernel(q, k, v, True)
+    o, lse = fa.flash_fwd_kernel(q, k, v, causal)
     lse_k, delta = fa.lse_kernel_layout(lse), fa.flash_delta(o, do, dlse)
     f32 = [x.float() for x in (q, k, v, do)]
-    got = {"dq": (fa.flash_bwd_dq_kernel(q, k, v, do, lse_k, delta, True),),
-           "dkv": fa.flash_bwd_dkv_kernel(q, k, v, do, lse_k, delta, True)}
-    want = {"dq": (fa.flash_bwd_dq_reference(*f32, lse_k, delta, True),),
-            "dkv": fa.flash_bwd_dkv_reference(*f32, lse_k, delta, True)}
+    got = {"dq": (fa.flash_bwd_dq_kernel(q, k, v, do, lse_k, delta, causal),),
+           "dkv": fa.flash_bwd_dkv_kernel(q, k, v, do, lse_k, delta, causal)}
+    want = {"dq": (fa.flash_bwd_dq_reference(*f32, lse_k, delta, causal),),
+            "dkv": fa.flash_bwd_dkv_reference(*f32, lse_k, delta, causal)}
     err = {}
     for kind in got:
         for name, x, w in zip(FLASH_KINDS[kind], got[kind], want[kind]):
@@ -1938,27 +1962,27 @@ def bwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
     del got, want, f32
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    out_t = sdpa(qt, kt, vt, is_causal=True, enable_gqa=h_kv != h)
+    out_t = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=h_kv != h)
     do_t = do.transpose(1, 2).contiguous()
     ms, source, runs = timed_in_turns(
-        [("dq", lambda i: fa.flash_bwd_dq_kernel(q, k, v, do, lse_k, delta, True)),
-         ("dkv", lambda i: fa.flash_bwd_dkv_kernel(q, k, v, do, lse_k, delta, True)),
+        [("dq", lambda i: fa.flash_bwd_dq_kernel(q, k, v, do, lse_k, delta, causal)),
+         ("dkv", lambda i: fa.flash_bwd_dkv_kernel(q, k, v, do, lse_k, delta, causal)),
          ("library_bwd", lambda i: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
                                                        retain_graph=True))],
         {"dq": 20, "dkv": 20, "library_bwd": 20})
-    work = flash_work(b, t, h, h_kv, d)
-    return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d},
+    work = flash_work(b, t, h, h_kv, d, causal)
+    return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d, "causal": causal},
             **{kind: {"ms": ms[kind], **bound_of(*work[kind]), "tflops": work[kind][0] / ms[kind]
                       / 1e9, "max_abs_err": err[kind]} for kind in ("dq", "dkv")},
             "library_bwd_all_ms": ms["library_bwd"], "ms_source": source, "runs": runs}
 
 
-def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
-    """K1 alone at another shape (bf16, causal): checked against its plain
-    version, then timed beside SDPA's forward and its bound."""
+def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda", causal=True):
+    """K1 alone at another shape (bf16): checked against its plain version,
+    then timed beside SDPA's forward and its bound."""
     q, k, v, _, _ = flash_case(rng, b, t, h, h_kv, d, torch.bfloat16, dev)
-    o, _ = fa.flash_fwd_kernel(q, k, v, True)
-    o_ref = fa.flash_fwd_reference(q.float(), k.float(), v.float(), True)[0]
+    o, _ = fa.flash_fwd_kernel(q, k, v, causal)
+    o_ref = fa.flash_fwd_reference(q.float(), k.float(), v.float(), causal)[0]
     err = (o.float() - o_ref).abs()
     check(bool((err <= flash_limit("o", o_ref, torch.bfloat16)).all()),
           f"flash fwd at b{b} t{t} h{h}/{h_kv} d{d}: max abs err {float(err.max())}")
@@ -1966,11 +1990,12 @@ def fwd_timing_at(rng, b, t, h, h_kv, d, dev="cuda"):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     ms, source, runs = timed_in_turns(
-        [("kernel", lambda i: fa.flash_fwd_kernel(q, k, v, True)),
-         ("library", lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=h_kv != h))],
+        [("kernel", lambda i: fa.flash_fwd_kernel(q, k, v, causal)),
+         ("library", lambda i: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=h_kv != h))],
         {"kernel": 20, "library": 20})
-    ops, nbytes = flash_work(b, t, h, h_kv, d)["fwd"]
-    return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d}, "ms": ms["kernel"],
+    ops, nbytes = flash_work(b, t, h, h_kv, d, causal)["fwd"]
+    return {"shape": {"b": b, "t": t, "h": h, "h_kv": h_kv, "d": d, "causal": causal},
+            "ms": ms["kernel"],
             "library_ms": ms["library"], **bound_of(ops, nbytes),
             "tflops": ops / ms["kernel"] / 1e9, "max_abs_err": float(err.max()),
             "ms_source": source, "runs": runs}
@@ -2298,8 +2323,12 @@ MESH_PLANTS = {
     "tp_enter_grad_not_summed": ({"tp": 2}, _COLL + (
         "c._TpEnter.backward = staticmethod(lambda ctx, g: (g, None, None))\n")),
 }
-# a plant's run: 1 + 2 steps (the first gradient and two updates)
-MESH_PLANT_WL = {**MESH_WL, "steps": 2}
+# a plant's run: 1 + 2 steps (the first gradient and two updates) at 2
+# layers, against one process's run of the same cut (cut from full
+# depth when ep_train and cp_train joined the script, to keep its wall
+# under ~1100 s of the 1200 s limit); a sound run of each mesh at the cut
+# beside them must pass the same limits
+MESH_PLANT_WL = {**MESH_WL, "steps": 2, "n_layers": 2}
 # resnet_dp: resnet_train's job (ResNet-50, fused_1x1, global batch 128,
 # 224^2) for 1 + 3 steps on two ranks under dp 2, 64 images each, batch
 # norm synced; its first RESNET_AGREE_STEPS losses within RESNET_AGREE_RTOL
@@ -2563,33 +2592,21 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
     of train's first four, the replicated leaves equal on both ranks);
     each rank launches K1/K2/K3 as many times a step as one process does
     (2·L / L / L), under tp 2 at 8 query and 2 KV heads. Then each planted
-    fault of MESH_PLANTS at the same shape, 1 + 2 steps, must fail
-    mesh_verdict. Logs each rank's step ms, host ms in collectives, bytes
+    fault of MESH_PLANTS at the same width and 2 layers, 1 + 2 steps, must
+    fail mesh_verdict against one process's run of that cut, and a sound
+    run of each mesh at that cut must pass it (the four gangs at once).
+    Logs each rank's step ms, host ms in collectives, bytes
     staged through the host and peak GB (two ranks on one card: no
     scaling figure)."""
-    spec = json.loads(NORTHSTAR_SPEC.read_text())
     cfg = preset_from_workload(MESH_WL)
     n_steps = MESH_WL["steps"] + 1
     want = {k: v * cfg.n_layers * n_steps for k, v in DENSE_PER_LAYER.items()}
     d = gang_dir("mesh_train")
     out, plants = [], {}
-
-    def gang(label, axes, wl, prelude=""):
-        torch.cuda.empty_cache()
-        rcs, secs, texts = run_gang(spec, wl, 2, axes, d / label, GLOO_ENV, timeout=900,
-                                    prelude=prelude)
-        check(rcs == [0, 0], f"mesh_train {label}: exit codes {rcs}:\n"
-              + "\n".join(t[-3000:] for t in texts))
-        lines = rank_lines(texts, f"mesh_train {label}")
-        n = wl["steps"] + 1
-        check(all(len(x["losses"]) == len(x["grad_norms"]) == n for x in lines),
-              f"mesh_train {label}: not {n} losses and grad norms a rank")
-        return lines, secs, texts
-
     try:
         for axes in MESH_TRAIN_AXES:
             label = "_".join(f"{k}{v}" for k, v in axes.items())
-            lines, secs, texts = gang(label, axes, MESH_WL)
+            lines, secs, texts = gang_checked(d, "mesh_train", label, axes, MESH_WL)
             failed, seen = mesh_verdict(lines, base_losses, base_norms)
             check(not failed, f"mesh_train {label}: {failed}: {seen} vs train's losses "
                   f"{base_losses[:n_steps]}, grad norms {base_norms[:n_steps]}")
@@ -2610,11 +2627,25 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
                         "launches_per_rank_per_step": {k: v / n_steps
                                                        for k, v in lines[0]["launches"].items()},
                         "seconds": secs})
-        for name, (axes, prelude) in MESH_PLANTS.items():
-            lines, secs, _ = gang(name, axes, MESH_PLANT_WL, prelude)
-            failed, seen = mesh_verdict(lines, base_losses, base_norms)
-            check(bool(failed), f"mesh_train: planted fault {name} passed: {seen}")
-            plants[name] = {"mesh": axes, "caught_by": failed, **seen, "seconds": secs}
+        torch.cuda.empty_cache()
+        cut = run_lm(MESH_PLANT_WL, device="cuda")
+        cut_losses, cut_norms = cut.losses, cut.grad_norms
+        del cut
+        sound = {"sound_" + "_".join(f"{k}{v}" for k, v in axes.items()): (axes, "")
+                 for axes in MESH_TRAIN_AXES}
+        runs = gangs_checked(d, "mesh_train", [(name, axes, MESH_PLANT_WL, prelude) for name, (
+            axes, prelude) in {**MESH_PLANTS, **sound}.items()])
+        for name, (axes, prelude) in {**MESH_PLANTS, **sound}.items():
+            lines, secs, _ = runs[name]
+            failed, seen = mesh_verdict(lines, cut_losses, cut_norms)
+            if name in sound:
+                check(not failed, f"mesh_train: sound run {name} at the plants' cut: {failed}: "
+                      f"{seen} vs {cut_losses}, {cut_norms}")
+            else:
+                check(bool(failed), f"mesh_train: planted fault {name} passed: {seen}")
+            plants[name] = {"mesh": axes, "n_layers": MESH_PLANT_WL["n_layers"],
+                            "caught_by": failed, **seen, "base_losses": cut_losses,
+                            "seconds": secs}
     finally:
         shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "mesh_train", "preset": MESH_WL["preset"], "batch": MESH_WL["batch_size"],
@@ -2627,6 +2658,381 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
           "card": smi})
     return {"_".join(f"{k}{v}" for k, v in r["mesh"].items()): r["launches_per_rank_per_step"]
             for r in out}
+
+
+# ep_train, cp_train and ep_cp_plants start their independent gangs at
+# once (gangs_checked: four ranks on the card), as mesh_train does its
+# plants: one after another the script took 1160 s of its 1200 s limit on
+# a slow host ("NVIDIA H100 80GB HBM3, 700.00 W", PERF.md). Their step ms
+# are then those of two gangs sharing the card.
+# ep_train: moe_train's job (moe-small at full width and depth, 8 experts,
+# top-1, gmm, b 16, t 512, full remat, bf16) for 1 + 3 steps on two ranks
+# under ep 2, each rank holding 4 experts and, through the ep region, half
+# of the tokens; held to moe_train's first four losses and gradient norms
+# by mesh_verdict (gmm drops nothing: one process and the gang compute one
+# function), K5/K6/K7a/K7b launched a rank and step as one process does.
+EP_WL = {**MOE_WL, "steps": 3}
+# Then sort at MOE_CHECK_CF for 1 + 2 steps, where choices drop (at cf 2.0
+# moe-small's random router drops none, and a capacity from the global
+# token count or a wrong queue order would pass): the per-shard queues (of
+# 4,096 tokens a rank, 256 slots an expert) drop other choices than one
+# process's queues of 8,192, so the losses are not held to moe_train's;
+# instead the first step's layer-0 MoE output on each rank's tokens
+# against a plain f32 recompute of its queues (EP_LAYER_CHECK), with the
+# same drop fraction, above 0.
+EP_SORT_WL = {**MOE_WL, "steps": 2, "moe_dispatch": "sort", "capacity_factor": MOE_CHECK_CF}
+# The recompute's limit on |port - plain|, elementwise: the port runs the
+# three expert products in bf16 (two roundings more than one gmm product,
+# GMM_BF16_*), so twice gmm's bf16 limit: 2^-6 of the value plus 2^-5 of
+# the row's rms. A wrong expert or slot moves an output by O(1) of the rms.
+EP_LAYER_RTOL = 2.0**-6
+EP_LAYER_RMS_ATOL = 2.0**-5
+# Each rank of the sort run checks layer 0 of the first step's forward
+# (the first call of _moe_mlp) on its block of the tokens: the port's
+# output against _moe_single's einsum dispatch in f32 on the same tokens
+# and router logits, at the per-shard capacity, with every expert gathered
+# over ep; logs an ``ep layer`` JSON line.
+EP_LAYER_CHECK = """
+import json, logging
+import torch
+import tf_operator_tpu_torch.models.transformer as T
+from tf_operator_tpu_torch.parallel import collectives as C, moe as M
+_sound, _seen = T._moe_mlp, []
+def _checked(h, lp, cfg):
+    out, aux = _sound(h, lp, cfg)
+    if _seen:
+        return out, aux
+    _seen.append(1)
+    with torch.no_grad():
+        mesh = lp.spmd.mesh
+        flat = h.detach().reshape(-1, h.shape[-1])
+        logits = flat @ lp["w_router"].detach().to(h.dtype)
+        n, i = C.axis_size(mesh, "ep"), C.axis_index(mesh, "ep")
+        rows = flat.shape[0] // n
+        mine = slice(i * rows, (i + 1) * rows)
+        experts = {k: C._gather(lp[k].detach().float(), mesh, "ep", 0)
+                   for k in ("w_gate", "w_up", "w_down")}
+        cap = M.expert_capacity(cfg.capacity_factor, cfg.moe_top_k, rows, cfg.n_experts)
+        want, stats = M._moe_single(flat[mine].float(), logits[mine].float(), experts,
+                                    T._swiglu_experts, cap, "zero", cfg.moe_top_k, "einsum")
+        got = out.detach().reshape(-1, h.shape[-1])[mine].float()
+        rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        limit = %r * want.abs() + %r * rms
+        err = (got - want).abs()
+        # a token whose choices all dropped is 0 in both: any error there is unbounded
+        over = torch.where(limit > 0, err / limit.clamp_min(1e-30),
+                           torch.where(err > 0, float("inf"), 0.0))
+        drop = C.sum_no_grad(stats["drop_frac"].reshape(1), mesh, ("ep",)) / n
+        logging.getLogger("tpujob.lm").info("ep layer: %%s", json.dumps({
+            "rank": i, "tokens": rows, "capacity": cap,
+            "max_abs_err": float(err.max()), "worst_err_over_limit": float(over.max()),
+            "plain_drop_frac": float(drop), "drop_frac": float(aux["drop_frac"])}))
+    return out, aux
+T._moe_mlp = _checked
+""" % (EP_LAYER_RTOL, EP_LAYER_RMS_ATOL)
+EP_LAYER_LINE = re.compile(r"ep layer: (\{.*\})")
+# cp_train: the train phase's job (gqa-2048, b 6, t 2048, flash, save_mid,
+# bf16) for 1 + 2 steps on two ranks under cp 2, each holding its 1,024
+# positions of every row, with ring and then Ulysses attention; held to
+# train's first three losses and gradient norms by mesh_verdict.
+CP_WL = {**TRAIN_WL, "steps": 2}
+CP_IMPLS = ("ring", "ulysses")
+# Faults planted in the ep and cp paths, at a cut depth (2 layers, 1 + 2
+# steps) against a one-process run of the same cut: name -> (mesh, the
+# workload, the code each rank runs first). Each must fail mesh_verdict.
+# ep: the gmm receiver builds its block -> expert map from its own counts
+# instead of the exchanged ones; cp: the ring's causal skip inverted (the
+# blocks of earlier ranks skipped, the later ones attended).
+EP_CP_PLANTS = {
+    "ep_own_counts": ({"ep": 2}, {**EP_WL, "steps": 2, "n_layers": 2}, _COLL + (
+        "c.exchange_counts = lambda counts, mesh, axis: counts\n")),
+    "cp_skip_inverted": ({"cp": 2}, {**CP_WL, "attn": "ring", "n_layers": 2}, (
+        "import tf_operator_tpu_torch.parallel.ring_attention as r\n"
+        "r._in_future = lambda src, my: src < my\n")),
+}
+GMM_COUNTERS = ("gmm_fwd_launches", "gmm_fwd_scaled_launches", "gmm_dw_launches",
+                "gmm_dw_scaled_launches")
+
+
+def gangs_checked(d: Path, phase: str, runs, timeout: float = 900) -> dict:
+    """Two-rank gangs through the harness (gloo), all started at once on the
+    card: ``runs`` is (label, axes, wl, prelude) each. {label: (rank lines,
+    seconds from its start until it was reaped, log texts)}; exit 0 on both ranks
+    and one loss and gradient norm a step on each, or the phase fails. No
+    process outlives the call."""
+    torch.cuda.empty_cache()
+    spec = json.loads(NORTHSTAR_SPEC.read_text())
+    started, out = [], {}
+    try:
+        for label, axes, wl, prelude in runs:
+            (d / label).mkdir(parents=True, exist_ok=True)
+            started.append((label, wl, time.perf_counter(),
+                            *start_gang(spec, wl, 2, axes, d / label, GLOO_ENV, prelude)))
+        for label, wl, t0, procs, paths in started:
+            try:
+                rcs = [p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+                       for p in procs]
+            except subprocess.TimeoutExpired:
+                check(False, f"{phase} {label}: a rank did not end within {timeout} s:\n"
+                      + "\n".join(p.read_text()[-2000:] for p in paths))
+            secs, texts = time.perf_counter() - t0, [p.read_text() for p in paths]
+            check(rcs == [0, 0], f"{phase} {label}: exit codes {rcs}:\n"
+                  + "\n".join(t[-3000:] for t in texts))
+            lines = rank_lines(texts, f"{phase} {label}")
+            n = wl["steps"] + 1
+            check(all(len(x["losses"]) == len(x["grad_norms"]) == n for x in lines),
+                  f"{phase} {label}: not {n} losses and grad norms a rank")
+            out[label] = (lines, secs, texts)
+    finally:
+        for run in started:
+            stop_gang(run[3])
+    return out
+
+
+def gang_checked(d: Path, phase: str, label: str, axes: dict, wl: dict, prelude: str = ""):
+    """One gang of gangs_checked: (rank lines, seconds, log texts)."""
+    return gangs_checked(d, phase, [(label, axes, wl, prelude)])[label]
+
+
+def per_rank(lines) -> list:
+    return [{k: x.get(k) for k in ("rank", "step_ms", "collective_s", "collective_calls",
+                                  "staged_bytes", "all_to_all_bytes",
+                                  "received_blocks_occupied", "peak_gb", "flash_fwd_heads")}
+            for x in lines]
+
+
+def cp_kernel_timing(cfg, b: int, t: int, dev="cuda") -> dict:
+    """K1, K2 and K3 (with a nonzero lse cotangent) at cp_train's shapes on
+    two ranks, each checked against its plain version and timed beside its
+    bound and SDPA: a ring hop of t/2 positions at all heads, causal (the
+    diagonal) and not (a block of an earlier rank); Ulysses' whole sequence
+    on half of the heads, causal."""
+    rng = np.random.RandomState(15)
+    h, h_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    shapes = {"ring_diagonal": (b, t // 2, h, h_kv, True),
+              "ring_earlier_block": (b, t // 2, h, h_kv, False),
+              "ulysses": (b, t, h // 2, h_kv // 2, True)}
+    out = {}
+    for name, (b_, t_, h_, hkv_, causal) in shapes.items():
+        fwd = fwd_timing_at(rng, b_, t_, h_, hkv_, d, dev, causal)
+        bwd = bwd_timing_at(rng, b_, t_, h_, hkv_, d, dev, causal)
+        out[name] = {"shape": fwd["shape"],
+                     "k1": {k: fwd[k] for k in ("ms", "library_ms", "bound_ms", "bound_by",
+                                                "max_abs_err")},
+                     "k2": {k: bwd["dq"][k] for k in ("ms", "bound_ms", "bound_by",
+                                                      "max_abs_err")},
+                     "k3": {k: bwd["dkv"][k] for k in ("ms", "bound_ms", "bound_by",
+                                                       "max_abs_err")},
+                     "library_bwd_all_ms": bwd["library_bwd_all_ms"],
+                     "ms_source": fwd["ms_source"]}
+    return out
+
+
+def ep_gmm_timing(dev="cuda", tokens=4096, E=8, S=2, d=768, f=3072, B=256) -> dict:
+    """K5 (gate/up, d -> f), K6 (down, f -> d, row-scaled), K7a and K7b on the
+    buffer an ep rank receives in ep_train (S segments of ceil(tokens/B) +
+    E/S blocks, each source's top-1 choices over E experts in its expert
+    regions, the rest -1), checked against their plain versions and timed
+    beside them and the bound of the occupied rows. bf16."""
+    rng = np.random.RandomState(16)
+    gen = torch.Generator(dev).manual_seed(16)
+    e_local = E // S
+    counts = torch.from_numpy(rng.multinomial(tokens, [1.0 / E] * E, size=S)[:, :e_local])
+    seg_blocks = -(-tokens // B) + e_local
+    be = moe_mod.receiver_block_expert(counts.to(dev), B, seg_blocks)
+    R = be.numel() * B
+    rows = int((be >= 0).sum()) * B
+    bf = torch.bfloat16
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf)
+
+    x, h = draw(R, d), draw(R, f)
+    w_up, w_down = draw(e_local, d, f, scale=d**-0.5), draw(e_local, f, d, scale=f**-0.5)
+    dy_up, dy_down = draw(R, f), draw(R, d)
+    s = torch.rand(R, device=dev, generator=gen)
+    e2, e4 = 2, 4
+    specs = {  # name: (kernel, plain, ops, bytes, out dims)
+        "k5": (lambda i: gm.gmm_fwd_kernel(x, w_up, be, block_rows=B),
+               lambda i: gm.gmm_fwd_reference(x, w_up, be, block_rows=B), 2 * rows * d * f,
+               rows * d * e2 + e_local * d * f * e2 + R * f * e2, (-1,)),
+        "k6": (lambda i: gm.gmm_fwd_kernel(h, w_down, be, s, block_rows=B),
+               lambda i: gm.gmm_fwd_reference(h, w_down, be, s, block_rows=B),
+               2 * rows * f * d, rows * f * e2 + e_local * f * d * e2 + rows * e4 + R * d * e2,
+               (-1,)),
+        "k7a": (lambda i: gm.gmm_dw_kernel(x, dy_up, be, e_local, block_rows=B),
+                lambda i: gm.gmm_dw_reference(x, dy_up, be, e_local, block_rows=B),
+                2 * rows * d * f, rows * d * e2 + rows * f * e2 + e_local * d * f * e4, (1, 2)),
+        "k7b": (lambda i: gm.gmm_dw_kernel(h, dy_down, be, e_local, s, block_rows=B),
+                lambda i: gm.gmm_dw_reference(h, dy_down, be, e_local, s, block_rows=B),
+                2 * rows * f * d,
+                rows * f * e2 + rows * d * e2 + rows * e4 + e_local * f * d * e4, (1, 2)),
+    }
+    out = {"rows": R, "computed_rows": rows, "occupied_share": rows / R,
+           "blocks": be.numel(), "experts_local": e_local}
+    for name, (kern, plain, ops, nbytes, dims) in specs.items():
+        got, want = kern(0).float(), plain(0).float()
+        err = (got - want).abs()
+        check(bool((err <= gmm_limit(want, bf, dims)).all()),
+              f"ep_gmm_timing {name}: max abs err {float(err.max())}")
+        del got, want
+        ms, source, _ = timed_in_turns([("kernel", kern), ("plain", plain)],
+                                       {"kernel": 20, "plain": 3})
+        out[name] = {"ms": ms["kernel"], "plain_ms": ms["plain"], **bound_of(ops, nbytes),
+                     "max_abs_err": float(err.max()), "ms_source": source}
+    return out
+
+
+def phase_ep_train(smi, base_losses, base_norms):
+    """Two gangs of two ranks, started at once, share the card over gloo
+    and train moe-small at full width through the harness under {"ep": 2}:
+    gmm for 1 + 3 steps, mesh_verdict
+    against moe_train's first four losses and gradient norms, and each
+    rank's K1-K3 and K5/K6/K7a/K7b launches a step equal to one process's
+    (MOE_PER_LAYER); then sort (cf MOE_CHECK_CF) for 1 + 2 steps, each
+    rank's layer-0 output of the first step within EP_LAYER_* of the plain
+    f32 recompute of its queues, with the same drop fraction, above 0, the loss finite
+    and falling, no gmm launch. Logs a rank's occupied share of its received
+    blocks, its all_to_all bytes, host seconds in collectives and peak GB;
+    then K5/K6/K7a/K7b timed on such a received buffer (ep_gmm_timing)."""
+    cfg = preset_from_workload(EP_WL)
+    d = gang_dir("ep_train")
+    try:
+        runs = gangs_checked(d, "ep_train", [("gmm", {"ep": 2}, EP_WL, ""),
+                                             ("sort", {"ep": 2}, EP_SORT_WL, EP_LAYER_CHECK)])
+        lines, secs, texts = runs["gmm"]
+        failed, seen = mesh_verdict(lines, base_losses, base_norms)
+        check(not failed, f"ep_train gmm: {failed}: {seen} vs moe_train's losses "
+              f"{base_losses[:4]}, grad norms {base_norms[:4]}")
+        n = EP_WL["steps"] + 1
+        want = {k: v * cfg.n_layers * n for k, v in MOE_PER_LAYER.items()}
+        for x in lines:
+            check(x["launches"] == want, f"ep_train gmm: rank {x['rank']} launches "
+                  f"{x['launches']} != {want}")
+            check(0 < x["received_blocks_occupied"] < 1, f"ep_train gmm: rank {x['rank']} "
+                  f"occupied share {x['received_blocks_occupied']}")
+        done = harness_result_done(texts[0], "ep_train gmm")
+        gmm = {**seen, "step_ms": done["step_ms"], "tokens_per_s": done["tokens_per_s"],
+               "per_rank": per_rank(lines),
+               "launches_per_rank_per_step": {k: v / n for k, v in lines[0]["launches"].items()},
+               "seconds": secs}
+        lines, secs, texts = runs["sort"]
+        n = EP_SORT_WL["steps"] + 1
+        layer = []
+        for r, text in enumerate(texts):
+            found = EP_LAYER_LINE.findall(text)
+            check(bool(found), f"ep_train sort: rank {r} logged no ep layer line")
+            layer.append(json.loads(found[0]))
+        for x in layer:
+            check(x["worst_err_over_limit"] <= 1.0, f"ep_train sort: layer 0 vs plain {x}")
+            check(x["plain_drop_frac"] > 0 and x["plain_drop_frac"] == x["drop_frac"],
+                  f"ep_train sort: drop fractions {x}")
+        want = {k: v * cfg.n_layers * n for k, v in DENSE_PER_LAYER.items()}
+        want.update({k: 0 for k in GMM_COUNTERS})
+        for x in lines:
+            check(x["launches"] == want, f"ep_train sort: rank {x['rank']} launches "
+                  f"{x['launches']} != {want}")
+            check(all(np.isfinite(x["losses"])) and x["losses"][-1] < x["losses"][0],
+                  f"ep_train sort: rank {x['rank']} losses {x['losses']}")
+        done = harness_result_done(texts[0], "ep_train sort")
+        sort = {"losses": lines[0]["losses"], "grad_norms": lines[0]["grad_norms"],
+                "layer0": layer, "rtol": EP_LAYER_RTOL, "rms_atol": EP_LAYER_RMS_ATOL,
+                "step_ms": done["step_ms"], "tokens_per_s": done["tokens_per_s"],
+                "per_rank": per_rank(lines), "seconds": secs}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    kernel_ms = ep_gmm_timing(tokens=EP_WL["batch_size"] * EP_WL["seq_len"] // 2,
+                              E=cfg.n_experts, d=cfg.d_model, f=cfg.d_ff)
+    emit({"phase": "ep_train", "preset": EP_WL["preset"], "batch": EP_WL["batch_size"],
+          "seq": EP_WL["seq_len"], "backend": "gloo", "ranks": 2, "mesh": {"ep": 2},
+          "gmm": gmm, "sort": sort, "kernel_ms_received_buffer": kernel_ms,
+          "moe_train_losses": base_losses[:4],
+          "moe_train_grad_norms": base_norms[:4],
+          "note": "two ranks share one card over gloo: a path check, not a scaling figure",
+          "card": smi})
+    return gmm["launches_per_rank_per_step"]
+
+
+def phase_cp_train(smi, base_losses, base_norms):
+    """Two gangs of two ranks, started at once, share the card over gloo
+    and train gqa-2048 at full width through the harness under {"cp": 2},
+    1 + 2 steps, one with ring and one with Ulysses attention:
+    mesh_verdict against train's first three losses and gradient norms;
+    K1-K3 launches a rank and step as the hop schedule says
+    (ring: rank r runs r + 1 hops a layer, each twice under save_mid, K1 at
+    16 and 4 heads; Ulysses: one attention over the whole sequence on 8 and
+    2 heads a layer, 2·L / L / L); then K1-K3 timed at those shapes
+    (cp_kernel_timing)."""
+    cfg = preset_from_workload(CP_WL)
+    L, n = cfg.n_layers, CP_WL["steps"] + 1
+    d = gang_dir("cp_train")
+    out = {}
+    try:
+        runs = gangs_checked(d, "cp_train", [(impl, {"cp": 2}, {**CP_WL, "attn": impl}, "")
+                                             for impl in CP_IMPLS])
+        for impl in CP_IMPLS:
+            lines, secs, texts = runs[impl]
+            failed, seen = mesh_verdict(lines, base_losses, base_norms)
+            check(not failed, f"cp_train {impl}: {failed}: {seen} vs train's losses "
+                  f"{base_losses[:n]}, grad norms {base_norms[:n]}")
+            for x in lines:
+                hops = x["rank"] + 1 if impl == "ring" else 1
+                want = {k: v * L * n * hops for k, v in DENSE_PER_LAYER.items()}
+                check(x["launches"] == want, f"cp_train {impl}: rank {x['rank']} launches "
+                      f"{x['launches']} != {want}")
+                heads = ([cfg.n_heads, cfg.n_kv_heads] if impl == "ring"
+                         else [cfg.n_heads // 2, cfg.n_kv_heads // 2])
+                check(x["flash_fwd_heads"] == heads, f"cp_train {impl}: K1 ran at heads "
+                      f"{x['flash_fwd_heads']}, want {heads}")
+            done = harness_result_done(texts[0], f"cp_train {impl}")
+            out[impl] = {**seen, "step_ms": done["step_ms"],
+                         "tokens_per_s": done["tokens_per_s"], "per_rank": per_rank(lines),
+                         "launches_per_step": {x["rank"]: {k: v / n for k, v in
+                                                           x["launches"].items()}
+                                               for x in lines},
+                         "seconds": secs}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    kernel_ms = cp_kernel_timing(cfg, CP_WL["batch_size"], CP_WL["seq_len"])
+    emit({"phase": "cp_train", "preset": CP_WL["preset"], "batch": CP_WL["batch_size"],
+          "seq": CP_WL["seq_len"], "backend": "gloo", "ranks": 2, "mesh": {"cp": 2},
+          "runs": out, "kernel_ms": kernel_ms, "train_losses": base_losses[:n],
+          "train_grad_norms": base_norms[:n],
+          "note": "two ranks share one card over gloo: a path check, not a scaling figure",
+          "card": smi})
+    return out
+
+
+def phase_ep_cp_plants(smi):
+    """Each fault of EP_CP_PLANTS on two ranks at its cut depth, against one
+    process's run of the same cut (run_lm here, same seed and batch, flash
+    attention): it must fail mesh_verdict, and the same run without the
+    fault must pass it (the four gangs at once)."""
+    d = gang_dir("ep_cp_plants")
+    plants, bases = {}, {}
+    runs_of = {**EP_CP_PLANTS, **{"sound_" + name: (axes, wl, "") for name, (
+        axes, wl, _) in EP_CP_PLANTS.items()}}
+    try:
+        for name, (axes, wl, prelude) in EP_CP_PLANTS.items():
+            torch.cuda.empty_cache()
+            base = run_lm({**wl, "attn": "flash"}, device="cuda")  # ring is flash off cp
+            bases[name] = bases["sound_" + name] = base.losses, base.grad_norms
+            del base
+        runs = gangs_checked(d, "ep_cp_plants", [(name, axes, wl, prelude) for name, (
+            axes, wl, prelude) in runs_of.items()])
+        for name, (axes, wl, _) in runs_of.items():
+            lines, secs, _ = runs[name]
+            failed, seen = mesh_verdict(lines, *bases[name])
+            if name in EP_CP_PLANTS:
+                check(bool(failed), f"ep_cp_plants: planted fault {name} passed: {seen}")
+            else:
+                check(not failed, f"ep_cp_plants: sound run {name} at the plants' cut: "
+                      f"{failed}: {seen} vs {bases[name]}")
+            plants[name] = {"mesh": axes, "n_layers": wl["n_layers"], "caught_by": failed,
+                            **seen, "base_losses": bases[name][0], "seconds": secs}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "ep_cp_plants", "plants": plants, "card": smi})
 
 
 def harness_result_done(text: str, phase: str) -> dict:
@@ -4022,6 +4428,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_counts = run_phase("mesh_train", phase_mesh_train, smi, train_losses, train_norms,
                             train_step_ms)
+    cp_runs = run_phase("cp_train", phase_cp_train, smi, train_losses, train_norms)
     run_phase("gang_peer_loss", phase_gang_peer_loss, smi)
     run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
     run_phase("jax_trajectory_bert", phase_jax_trajectory, dev, smi, trajectory.BERT_ARTIFACT,
@@ -4055,7 +4462,12 @@ def main() -> int:
     gmm_yardstick = {"step_ms": moe_run.step_s * 1e3, "tokens_per_s": moe_run.tokens_per_s,
                      "busy_ms": moe_bd["device_busy_ms_per_step"],
                      "idle_share": moe_bd["device_idle_share"], "drop_frac": 0.0}
+    moe_losses, moe_norms = moe_run.losses, moe_run.grad_norms
     del moe_run
+    torch.cuda.empty_cache()
+    # expert parallelism on two ranks, then the ep and cp planted faults
+    ep_counts = run_phase("ep_train", phase_ep_train, smi, moe_losses, moe_norms)
+    run_phase("ep_cp_plants", phase_ep_cp_plants, smi)
     torch.cuda.empty_cache()
     run_phase("moe_parity", phase_train_parity, dev, MOE_WL, per_layer=MOE_PER_LAYER,
               phase="moe_parity", bf16_atol=PARITY_MOE_BF16_LOSS_ATOL)
@@ -4123,6 +4535,11 @@ def main() -> int:
             # a rank's launches a step on two ranks under each mesh
             "mesh_train_launches_per_rank_per_step": {m: c[counter]
                                                       for m, c in mesh_counts.items()},
+            # each rank's under cp 2 (ring: rank r runs r + 1 hops a layer)
+            "cp_train_launches_per_rank_per_step": {
+                impl: {rank: c[counter] for rank, c in r["launches_per_step"].items()}
+                for impl, r in cp_runs.items()},
+            "ep_train_launches_per_rank_per_step": ep_counts[counter],
             # bf16 (the path's type) against the f32 plain version on the same
             # inputs, over every flash_check case and the train shape; the f32
             # instantiation's error beside it
@@ -4155,6 +4572,8 @@ def main() -> int:
             "source": "tf_operator_tpu_torch/ops/csrc/grouped_matmul.cu",
             "replaces": f"tf_operator_tpu/ops/grouped_matmul.py:{line}",
             "launches": moe_counts[counter],
+            # a rank's launches a step on two ranks under ep 2 (gmm)
+            "ep_train_launches_per_rank_per_step": ep_counts[counter],
             # bf16 (the path's type) against the f32 plain version on the same
             # inputs, over every gmm_check case and the moe_train shape; the
             # f32 instantiation's error beside it

@@ -7,6 +7,12 @@
 - Each leaf's placement under ``DEFAULT_RULES`` is JAX's ``PartitionSpec``
   for every leaf of ``transformer_logical_axes(tiny)``, and the batch's;
   every leaf of ``resnet_logical_axes`` is replicated, as in JAX.
+- tiny-moe's placements under meshes with ep and cp are JAX's, and a
+  [batch, seq] array's rank blocks (``MeshPlan.local_batch``) are JAX's
+  ``NamedSharding`` index blocks.
+- ``_moe_local_gmm`` on a simulated ep axis of 2 and 4 shards (threads,
+  the exchanges by hand) gives JAX's ``_moe_local_gmm`` under ``jax.vmap``
+  over an "ep" axis, and its receiver's block map is the counts' layout.
 - ``shard_params`` then ``gather_params`` gives the input back bitwise.
 - The rendezvous helpers: backend choice, the one-card-a-process rule,
   the peer-loss mapping to exit 138, and the raises that remain.
@@ -190,3 +196,109 @@ def test_rendezvous_helpers(monkeypatch):
         boom(ValueError("a workload bug"))(ctx)
     with pytest.raises(RuntimeError, match="CUDA error"):
         boom(RuntimeError("CUDA error: an illegal memory access"))(ctx)
+
+
+EP_CP_MESHES = [{"dp": 2, "fsdp": 2, "ep": 2}, {"ep": 4, "tp": 2}, {"fsdp": 2, "ep": 2, "cp": 2},
+                {"dp": 2, "cp": 4}]
+
+
+@pytest.mark.parametrize("axes", EP_CP_MESHES)
+def test_expert_and_seq_placements_match_jax(axes):
+    """tiny-moe's leaves (the experts split over ep, w_router over fsdp and
+    ep) are JAX's PartitionSpecs under DEFAULT_RULES, and a [batch, seq]
+    array's rank blocks (MeshPlan.local_batch: rows over dp and fsdp, the
+    sequence over cp) are the index blocks of JAX's NamedSharding of
+    ("batch", "seq") on every device."""
+    jm = jmesh.build_mesh(axes, devices=jax.devices())
+    tm = tmesh.build_mesh(axes, ranks=range(N))
+    cfg_j, cfg_t = jt.preset("tiny-moe"), tt.preset("tiny-moe")
+    want = jax.tree_util.tree_map(
+        lambda la: tuple(jsharding.DEFAULT_RULES.sharding(jm, list(la)).spec),
+        jt.transformer_logical_axes(cfg_j), is_leaf=lambda x: isinstance(x, tuple))
+    assert tsharding.placements(tm, tt.transformer_logical_axes(cfg_t)) == want
+    full = np.arange(8 * 16).reshape(8, 16)
+    index = jsharding.DEFAULT_RULES.sharding(jm, ["batch", "seq"]).devices_indices_map(full.shape)
+    for device, idx in index.items():
+        plan = tsharding.MeshPlan(tm, rank=device.id)
+        np.testing.assert_array_equal(plan.local_batch(full), full[idx])
+        assert plan.loss_size == plan.data_size * plan.seq_size
+        assert set(plan.loss_axes) == {a for a in ("dp", "fsdp", "cp") if axes.get(a, 1) > 1}
+
+
+class _ThreadEp:
+    """Shard ``s`` of a simulated ep axis of ``n`` shards, one thread each:
+    what moe.py reads of a DeviceMesh, and all_to_all and the count
+    exchange through a barrier (row j of each shard's [n, ...] to shard j)."""
+
+    def __init__(self, s: int, n: int, board: dict, barrier) -> None:
+        self.s, self.n, self.board, self.barrier = s, n, board, barrier
+        self.mesh_dim_names, self.mesh = ("ep",), torch.zeros(n)
+
+    def get_local_rank(self, axis):
+        return self.s
+
+    def exchange(self, x):
+        self.board[self.s] = x
+        self.barrier.wait()
+        out = torch.stack([self.board[j][self.s] for j in range(self.n)])
+        self.barrier.wait()
+        return out
+
+
+@pytest.mark.parametrize("n,k_top", [(2, 1), (4, 2)])
+def test_moe_local_gmm_layout_matches_jax(monkeypatch, n, k_top):
+    """_moe_local_gmm on n simulated ep shards (threads, the exchanges done
+    by hand): each shard's output equals JAX's _moe_local_gmm run under
+    jax.vmap over an "ep" axis of n (its all_to_all, its send slots and
+    its receiver map; gmm in interpret mode), f32, row block 8; and the
+    receiver's block map holds each source's local experts at
+    ceil(count / B) blocks each, in expert order, the rest -1."""
+    import threading
+
+    from tf_operator_tpu.parallel import moe as jmoe
+    from tf_operator_tpu_torch.parallel import collectives as coll
+    from tf_operator_tpu_torch.parallel import moe as tmoe
+
+    T, d, f, E, B = 24, 16, 8, 8, 8
+    rng = np.random.RandomState(n)
+    x = rng.randn(n, T, d).astype(np.float32)
+    g = rng.randn(n, T, E).astype(np.float32)
+    g[:, :, 0] -= 10.0  # expert 0 wins no choice: empty regions on every source
+    w = {k: rng.randn(n, E // n, *s).astype(np.float32) * 0.3
+         for k, s in (("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d)))}
+    want = jax.jit(jax.vmap(lambda x, g, w: jmoe._moe_local_gmm(x, g, w, "ep", k_top, B)[0],
+                            axis_name="ep"))(x, g, w)
+
+    board, barrier = {}, threading.Barrier(n)
+    meshes = [_ThreadEp(s, n, board, barrier) for s in range(n)]
+    monkeypatch.setattr(coll, "all_to_all", lambda t, mesh, axis: mesh.exchange(t))
+    monkeypatch.setattr(coll, "exchange_counts", lambda t, mesh, axis: mesh.exchange(t))
+    maps, outs, sound = {}, {}, tmoe.receiver_block_expert
+
+    def record(counts_rcv, block_rows, seg_blocks):
+        be = sound(counts_rcv, block_rows, seg_blocks)
+        maps[threading.current_thread().name] = (counts_rcv, seg_blocks, be)
+        return be
+
+    monkeypatch.setattr(tmoe, "receiver_block_expert", record)
+
+    def shard(s):
+        with torch.no_grad():
+            outs[s] = tmoe._moe_local_gmm(
+                torch.from_numpy(x[s]), torch.from_numpy(g[s]),
+                {k: torch.from_numpy(v[s]) for k, v in w.items()}, meshes[s], "ep", k_top, B)[0]
+
+    threads = [threading.Thread(target=shard, args=(s,), name=str(s)) for s in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for s in range(n):
+        np.testing.assert_allclose(outs[s].numpy(), np.asarray(want[s]), rtol=0, atol=1e-5)
+        counts_rcv, seg_blocks, be = maps[str(s)]
+        for src in range(n):
+            blocks = [-(-int(c) // B) for c in counts_rcv[src]]
+            expect = [e for e, nb in enumerate(blocks) for _ in range(nb)]
+            expect += [-1] * (seg_blocks - len(expect))
+            assert be[src * seg_blocks:(src + 1) * seg_blocks].tolist() == expect
+        assert (be == -1).any() and int(counts_rcv.sum()) > 0

@@ -231,14 +231,37 @@ def test_lm_workload_main_on_tiny_moe(caplog):
     assert lm.router_metrics(lm.run_lm({**wl, "preset": "tiny"}, device="cpu")) is None
 
 
+GMM_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def tmesh_of(axes):
+    from tf_operator_tpu_torch.parallel import mesh
+
+    return mesh.build_mesh(axes, ranks=range(int(np.prod(list(axes.values())))))
+
+
 def test_unported_moe_paths_raise():
     x, logits = torch.zeros(8, 4), torch.zeros(8, 2)
     experts = {"w_gate": torch.zeros(2, 4, 8), "w_up": torch.zeros(2, 4, 8),
                "w_down": torch.zeros(2, 8, 4)}
-    mesh = type("Mesh", (), {"axis_names": ("ep",), "shape": {"ep": 2}})()
-    for impl in ("sort", "einsum", "ragged", "gmm"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            moe.moe_apply(x, logits, experts, None, mesh, dispatch_impl=impl)
+    # under ep the mesh branch's errors are JAX's, word for word (each is
+    # raised before any collective: a mesh without a process group will do)
+    for axes, n_tok, n_exp, keys, impl in (({"ep": 2}, 8, 3, GMM_KEYS, "sort"),
+                                           ({"ep": 2}, 7, 2, GMM_KEYS, "einsum"),
+                                           ({"dp": 2, "ep": 2}, 6, 2, GMM_KEYS, "sort"),
+                                           ({"ep": 2}, 8, 2, ("w",), "gmm")):
+        jmesh = build_mesh(axes, devices=jax.devices()[:int(np.prod(list(axes.values())))])
+        tmesh = tmesh_of(axes)
+        errors = []
+        for pkg, mesh, arr in ((jmoe, jmesh, jnp.zeros), (moe, tmesh, torch.zeros)):
+            # the port takes a rank's rows: the global count over the data axes
+            rows = n_tok if pkg is jmoe else n_tok // axes.get("dp", 1)
+            with pytest.raises(ValueError) as err:
+                pkg.moe_apply(arr((rows, 4)), arr((rows, n_exp)), {k: arr((n_exp, 4, 4))
+                                                                    for k in keys},
+                              None, mesh, dispatch_impl=impl)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1], errors
     with pytest.raises(ValueError, match="needs an expert_fn"):
         moe.moe_apply(x, logits, experts, dispatch_impl="sort")
     with pytest.raises(ValueError, match="needs a ragged_expert_fn"):

@@ -99,19 +99,19 @@ def test_flash_forward_runs_per_remat_mode(monkeypatch, remat, fwd_per_layer):
 def test_unported_modes_raise():
     p = tt.init_transformer(tt.preset("tiny"), torch.Generator().manual_seed(0), "cpu")
     tok = torch.zeros(1, 4, dtype=torch.long)
-    for over, match in (({"attn_impl": "ring"}, "M12"), ({"attn_impl": "ulysses"}, "M12"),
-                        ({"pp_microbatches": 2}, "M13")):
-        with pytest.raises(NotImplementedError, match=match):
-            tt.lm_loss(p, tok, tt.preset("tiny", **over))
-    # under a mesh: a cp axis (M12), a pp axis (M13), an ep axis or MoE
-    # on more than one device (Queue 1 item 4); no process group is needed
-    # to build a mesh, and the check comes before any collective
+    with pytest.raises(NotImplementedError, match="M13"):
+        tt.lm_loss(p, tok, tt.preset("tiny", pp_microbatches=2))
+    # without a cp axis ring and ulysses attend densely, as JAX's do
+    dense = tt.lm_loss(p, tok, tt.preset("tiny"))
+    for impl in ("ring", "ulysses"):
+        assert float(tt.lm_loss(p, tok, tt.preset("tiny", attn_impl=impl))) == float(dense)
+    # under a mesh: a pp axis (M13) and MoE under a cp axis (Queue 1 item
+    # 12); no process group is needed to build a mesh, and the check comes
+    # before any collective
     from tf_operator_tpu_torch.parallel.mesh import build_mesh
 
-    for axes, cfg, match in (({"cp": 2}, tt.preset("tiny"), "M12"),
-                             ({"pp": 2}, tt.preset("tiny"), "M13"),
-                             ({"ep": 2}, tt.preset("tiny"), "item 4"),
-                             ({"dp": 2}, tt.preset("tiny-moe"), "item 4")):
+    for axes, cfg, match in (({"pp": 2}, tt.preset("tiny"), "M13"),
+                             ({"cp": 2}, tt.preset("tiny-moe"), "item 12")):
         with pytest.raises(NotImplementedError, match=match):
             tt.lm_loss(p, tok, cfg, mesh=build_mesh(axes, ranks=range(2)))
     with pytest.raises(ValueError, match="unknown remat mode"):

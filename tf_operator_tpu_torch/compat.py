@@ -54,7 +54,9 @@ def shard_params(full: Dict[str, Any], mesh, logical_axes: Any, rank: int,
                  rules=None) -> Dict[str, Any]:
     """``rank``'s blocks of a whole params tree (numpy or torch leaves, as
     given) on ``mesh`` under ``logical_axes`` (DEFAULT_RULES by default):
-    JAX's params load onto any mesh this way."""
+    JAX's params load onto any mesh this way, the experts split over ep
+    (and their embed dim over fsdp); no leaf splits over cp, which splits
+    only the batch's sequence (``MeshPlan.local_batch``)."""
     from tf_operator_tpu_torch.parallel.sharding import DEFAULT_RULES, placements, shard_tensor
 
     place = placements(mesh, logical_axes, rules or DEFAULT_RULES)

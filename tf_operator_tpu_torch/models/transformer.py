@@ -3,8 +3,8 @@
 Port of ``tf_operator_tpu/models/transformer.py``: the config and its
 presets (same numbers), parameter init (same tree, keys, stacked
 ``[L, ...]`` shapes and distributions), RMSNorm and rotary embeddings,
-the decoder layer with ``dense`` or ``flash`` attention and a dense
-SwiGLU or a top-k MoE MLP (every ``moe_dispatch`` without a mesh,
+the decoder layer with ``dense``, ``flash``, ``ring`` or ``ulysses``
+attention and a dense SwiGLU or a top-k MoE MLP (every ``moe_dispatch``,
 parallel/moe.py), every remat mode of the JAX package (none, full,
 ``dots`` and the ``save:`` names, on ``torch.utils.checkpoint``), the
 forward, the causal LM loss and the bidirectional (BERT-class) masked-LM
@@ -12,22 +12,36 @@ loss, fused or not, with the MoE router losses and telemetry. Master
 params stay f32 and are cast to ``cfg.dtype`` inside the layer, as in the
 JAX package.
 
-Under a mesh (``mesh``: a DeviceMesh over dp, fsdp and tp; params laid
-out by ``transformer_logical_axes`` and ``parallel.sharding.DEFAULT_RULES``,
-each rank holding its blocks) the model is explicit SPMD: each layer
-all-gathers its fsdp-split leaves inside the layer (a remat region
-gathers again in its recompute, as FSDP does), wq/wk/wv and
-w_gate/w_up are column-parallel behind ``tp_region_enter`` and wo and
-w_down row-parallel before ``tp_region_exit``, attention runs on the
-local batch and heads with no collective (K and V gathered and repeated
-to the query heads first where ``n_kv_heads % tp != 0``), the tied
-embedding is gathered whole for the lookup and the CE (its gradient
-reduce-scattered back over fsdp), and the loss is the global one: its
-numerator and denominator are summed over the data axes.
+Under a mesh (``mesh``: a DeviceMesh over dp, fsdp, ep, cp and tp;
+params laid out by ``transformer_logical_axes`` and
+``parallel.sharding.DEFAULT_RULES``, each rank holding its blocks) the
+model is explicit SPMD: each layer all-gathers its fsdp-split leaves
+inside the layer (a remat region gathers again in its recompute, as FSDP
+does), wq/wk/wv and w_gate/w_up are column-parallel behind
+``tp_region_enter`` and wo and w_down row-parallel before
+``tp_region_exit``, attention runs on the local batch and heads (K and V
+gathered and repeated to the query heads first where ``n_kv_heads % tp
+!= 0``), the tied embedding is gathered whole for the lookup and the CE
+(its gradient reduce-scattered back over fsdp), and the loss is the
+global one: its numerator and denominator are summed over the data axes
+and cp.
 
-Not ported yet, and raising where asked for: ring and Ulysses attention
-and a cp axis (ROADMAP M12), pipeline parallelism and a pp axis (M13),
-an ep axis or MoE under a mesh of more than one device (Queue 1 item 4).
+Under cp each rank holds its block of the sequence through the whole
+layer: RoPE rotates at global positions, ``ring`` and ``ulysses`` run
+parallel/ring_attention.py and parallel/ulysses.py, and ``flash`` and
+``dense`` compute what GSPMD computes for them in JAX, attention over the
+whole sequence: Q, K and V are all-gathered over cp, attended, and the
+rank keeps its block of the output (K/V alone would do only with a query
+offset in the causal mask, which the kernels do not take). The causal
+LM's last position of a block takes its target from the next rank's
+block. The MoE MLP under a mesh runs ``moe_apply`` on the rank's tokens
+with its experts (split over ep, gathered over fsdp and tp), its router
+from ``w_router`` gathered over fsdp and ep, and its router losses from
+the global stats.
+
+Not ported yet, and raising where asked for: pipeline parallelism and a
+pp axis (ROADMAP M13), MoE together with a cp axis of more than one
+(ROADMAP Queue 1 item 12).
 
 Declared differences: the masked-LM loss without an explicit ``mask``
 uses a fixed mask drawn with ``np.random.RandomState(0)`` (JAX: the
@@ -366,32 +380,48 @@ def rope_at_positions(x: torch.Tensor, positions: torch.Tensor, theta: float) ->
     return _Rope.apply(x, cos, sin)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding at positions 0..t-1 (the training forward):
-    rope_at_positions at arange(t). x: [b, t, h, d_head]."""
+def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
+    """Rotary embedding at positions offset..offset+t-1 (the training
+    forward; ``offset`` is a cp rank's first global position):
+    rope_at_positions at arange(t) + offset. x: [b, t, h, d_head]."""
     b, t = x.shape[:2]
-    pos = torch.arange(t, device=x.device).expand(b, t)
+    pos = (torch.arange(t, device=x.device) + offset).expand(b, t)
     return rope_at_positions(x, pos, theta)
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    """q: [b, t, nh, hd]; k/v: [b, t, nkv, hd]. GQA-native on both paths:
+def _attention(q, k, v, cfg: TransformerConfig, spmd: Optional["_Spmd"] = None):
+    """q: [b, t, nh, hd]; k/v: [b, t, nkv, hd]. GQA-native on every path:
     no [b, t, nh, hd] K/V tensor exists. ``flash`` runs the hand-written
     kernels on the card (ops/flash_attention.py); ``dense`` the grouped
-    einsum with an f32 softmax, the same math."""
+    einsum with an f32 softmax, the same math. Under a mesh with a cp
+    axis ``ring`` and ``ulysses`` run their modules on the rank's sequence
+    block (without one they fall to ``dense``, as in JAX), and ``flash``
+    and ``dense`` attend over the sequence gathered over cp and keep the
+    rank's block."""
     from tf_operator_tpu_torch.ops.flash_attention import (
         flash_attention,
         reference_attention,
     )
 
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported yet (ROADMAP M12)")
-    if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=cfg.causal)
-    if cfg.attn_impl != "dense":
+    has_cp = spmd is not None and cfg.cp_axis in spmd.mesh.mesh_dim_names
+    if cfg.attn_impl == "ring" and has_cp:
+        from tf_operator_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, spmd.mesh, axis_name=cfg.cp_axis, causal=cfg.causal)
+    if cfg.attn_impl == "ulysses" and has_cp:
+        from tf_operator_tpu_torch.parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, spmd.mesh, axis_name=cfg.cp_axis, causal=cfg.causal)
+    if cfg.attn_impl not in ("flash", "dense", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    return reference_attention(q, k, v, causal=cfg.causal)
+    fn = flash_attention if cfg.attn_impl == "flash" else reference_attention
+    cp = 1 if spmd is None else spmd.cp
+    if cp == 1:
+        return fn(q, k, v, causal=cfg.causal)
+    t = q.shape[1]
+    whole = [coll.all_gather(x, spmd.mesh, cfg.cp_axis, dim=1) for x in (q, k, v)]
+    out = fn(*whole, causal=cfg.causal)
+    return out.narrow(1, coll.axis_index(spmd.mesh, cfg.cp_axis) * t, t)
 
 
 def _swiglu_experts(wp, toks):
@@ -402,30 +432,38 @@ def _swiglu_experts(wp, toks):
 
 
 def _moe_mlp(h, lp, cfg: TransformerConfig):
-    """Top-k expert MLP without a mesh: the router product in the
-    activation dtype, then parallel/moe.py's dispatch (cfg.moe_dispatch)
-    with the SwiGLU expert body (sort, einsum: one batched product over
-    the stacked [E, C, d] inbox; ragged: ragged_swiglu; gmm: the grouped
-    matmul kernels, which compute the same body). Returns (out, aux):
-    aux holds the UNWEIGHTED router losses (the loss head weighs them) and
-    telemetry: the Switch load-balance loss E·Σ load·mean_gate (load comes
-    from the discrete assignment and carries no gradient), the ST-MoE
-    z-loss mean(logsumexp(f32 logits)²), expert_load [E] and drop_frac."""
+    """Top-k expert MLP: the router product in the activation dtype, then
+    parallel/moe.py's dispatch (cfg.moe_dispatch) with the SwiGLU expert
+    body (sort, einsum: one batched product over the stacked [E, C, d]
+    inbox; ragged: ragged_swiglu; gmm: the grouped matmul kernels, which
+    compute the same body); under a mesh on the rank's tokens and experts.
+    Returns (out, aux): aux holds the UNWEIGHTED router losses (the loss
+    head weighs them) and telemetry, of the global batch: the Switch
+    load-balance loss E·Σ load·mean_gate (load comes from the discrete
+    assignment and carries no gradient), the ST-MoE z-loss
+    mean(logsumexp(f32 logits)²), expert_load [E] and drop_frac."""
     from tf_operator_tpu_torch.parallel.moe import moe_apply, ragged_swiglu
 
+    spmd = _spmd_of(lp)
+    mesh = None if spmd is None else spmd.mesh
     b, t, d = h.shape
     flat = h.reshape(b * t, d)
     gate_logits = flat @ lp["w_router"].to(h.dtype)
     experts = {k: lp[k] for k in ("w_gate", "w_up", "w_down")}
     out, stats = moe_apply(
-        flat, gate_logits, experts, _swiglu_experts, None, axis_name=cfg.ep_axis,
+        flat, gate_logits, experts, _swiglu_experts, mesh, axis_name=cfg.ep_axis,
         capacity_factor=cfg.capacity_factor, dropped="zero", k_top=cfg.moe_top_k,
         return_stats=True, dispatch_impl=cfg.moe_dispatch, ragged_expert_fn=ragged_swiglu)
     lb_loss = cfg.n_experts * (stats["expert_load"] * stats["mean_gate"]).sum()
-    z = torch.logsumexp(gate_logits.float(), dim=-1)
-    aux = {"lb_loss": lb_loss, "z_loss": z.square().mean(),
+    z_loss = torch.logsumexp(gate_logits.float(), dim=-1).square().mean()
+    if spmd is not None:  # the mean over the global tokens
+        z_loss = coll.all_reduce_mean(z_loss, mesh, spmd.plan.data_axes)
+    aux = {"lb_loss": lb_loss, "z_loss": z_loss,
            "expert_load": stats["expert_load"], "drop_frac": stats["drop_frac"]}
     return out.reshape(b, t, d), aux
+
+
+_EXPERT_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
 
 
 class _ShardedLayer(dict):
@@ -439,8 +477,14 @@ class _ShardedLayer(dict):
         self.local, self.spmd = local, spmd
 
     def __missing__(self, name):
+        # the experts stay split over ep and are gathered whole over tp (the
+        # MoE runs alike on every tp rank); the router is gathered whole
+        # (its product runs on every ep rank's tokens alike)
+        keep, replicated = {"w_router": ((), ("ep",))}.get(
+            name, (("ep",), ("tp",)) if name in _EXPERT_LEAVES and self.spmd.moe
+            else (("tp",), ()))
         value = self.spmd.plan.gather(self.local[name], self.spmd.layer_placement[name],
-                                      keep=("tp",))
+                                      keep=keep, replicated=replicated)
         self[name] = value
         return value
 
@@ -450,6 +494,10 @@ class _ShardedLayer(dict):
 
 def _fresh(lp):
     return lp.fresh() if isinstance(lp, _ShardedLayer) else lp
+
+
+def _spmd_of(lp) -> Optional["_Spmd"]:
+    return lp.spmd if isinstance(lp, _ShardedLayer) else None
 
 
 def _tp_enter(lp, h):
@@ -466,24 +514,26 @@ def _heads(h, lp, name: str, cfg: TransformerConfig, rotate: bool):
     rotated, repeated to the query heads and this rank's heads kept."""
     b, t, _ = h.shape
     y = h @ lp[name].to(h.dtype)
-    spmd = lp.spmd if isinstance(lp, _ShardedLayer) else None
+    spmd = _spmd_of(lp)
+    offset = 0 if spmd is None else spmd.plan.seq_index * t  # global positions under cp
     if spmd is not None and name != "wq" and spmd.kv_repeat:
         y = coll.all_gather(y, spmd.mesh, "tp", dim=-1)
         y = y.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
         if rotate:
-            y = _rope(y, cfg.rope_theta)
+            y = _rope(y, cfg.rope_theta, offset)
         local = cfg.n_heads // spmd.tp
         first = coll.axis_index(spmd.mesh, "tp") * local
         y = y.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
         return y[:, :, first:first + local]
     y = y.reshape(b, t, -1, cfg.head_dim)
-    return _rope(y, cfg.rope_theta) if rotate else y
+    return _rope(y, cfg.rope_theta, offset) if rotate else y
 
 
 def _resid_mid(lp, cfg: TransformerConfig, x, q, k, v):
     """x + attention: the first half of the layer's residual stream."""
     b, t, _ = x.shape
-    return x + _tp_exit(lp, _attention(q, k, v, cfg).reshape(b, t, -1) @ lp["wo"].to(x.dtype))
+    attn = _attention(q, k, v, cfg, _spmd_of(lp)).reshape(b, t, -1)
+    return x + _tp_exit(lp, attn @ lp["wo"].to(x.dtype))
 
 
 def _swiglu_out(lp, cfg: TransformerConfig, x, z_gate, up):
@@ -515,8 +565,10 @@ _LAYER_VALUES = {
     "mlp_up": (("h_mlp",), lambda lp, cfg, h: h @ lp["w_up"].to(h.dtype)),
     "out": (("resid_mid", "mlp_gate", "mlp_up"), _swiglu_out),
 }
-# An MoE layer has no mlp_gate/mlp_up: its MLP is the expert dispatch.
+# An MoE layer has no mlp_gate/mlp_up: its MLP is the expert dispatch, which
+# runs alike on every tp rank, so its input is no tp region's.
 _MOE_LAYER_VALUES = {k: v for k, v in _LAYER_VALUES.items() if not k.startswith("mlp_")} | {
+    "h_mlp": (("resid_mid",), lambda lp, cfg, x: _rms_norm(x, lp["mlp_norm"], cfg.norm_eps)),
     "out": (("resid_mid", "h_mlp"), _moe_out)}
 
 
@@ -678,26 +730,28 @@ def check_supported(cfg: TransformerConfig, mesh) -> None:
     if mesh is None:
         return
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-    for axis, item in (("cp", "context parallelism is not ported yet (ROADMAP M12)"),
-                       ("pp", "pipeline parallelism is not ported yet (ROADMAP M13)"),
-                       ("ep", "expert parallelism is not ported yet (ROADMAP Queue 1 item 4)")):
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(f"a {axis} axis of {sizes[axis]}: {item}")
-    if cfg.n_experts and mesh.mesh.numel() > 1:
+    if sizes.get("pp", 1) > 1:
         raise NotImplementedError(
-            "MoE under a mesh of more than one device is not ported yet (ROADMAP Queue 1 "
-            "item 4: the capacity dispatch ranks tokens over the global batch)")
+            f"a pp axis of {sizes['pp']}: pipeline parallelism is not ported yet (ROADMAP M13)")
+    if cfg.n_experts and sizes.get(cfg.cp_axis, 1) > 1:
+        raise NotImplementedError(
+            f"MoE under a cp axis of {sizes[cfg.cp_axis]} is not ported yet (ROADMAP Queue 1 "
+            "item 12: the token order of the capacity queues across sequence blocks)")
 
 
 class _Spmd:
     """What the model needs of a mesh: the plan (placements, coordinates,
-    data split) of transformer_logical_axes under DEFAULT_RULES, the tp
-    size, and whether K/V must be repeated before the heads split."""
+    data split) of transformer_logical_axes under DEFAULT_RULES, the tp and
+    cp sizes, whether K/V must be repeated before the heads split, and
+    whether the layers are MoE's."""
 
     def __init__(self, cfg: TransformerConfig, mesh) -> None:
         self.mesh = mesh
         self.plan = MeshPlan(mesh, transformer_logical_axes(cfg), DEFAULT_RULES)
         self.tp = self.plan.size("tp")
+        self.cp_axis = cfg.cp_axis
+        self.cp = self.plan.size(cfg.cp_axis)
+        self.moe = bool(cfg.n_experts)
         if cfg.n_heads % self.tp:
             raise ValueError(f"n_heads {cfg.n_heads} does not split over tp={self.tp}")
         self.kv_repeat = cfg.n_kv_heads % self.tp != 0
@@ -801,28 +855,38 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None, *,
     moe_expert_entropy (mean over layers, nats; uniform routing = ln(E))
     and moe_drop_frac.
 
-    Under a mesh ``tokens`` (and ``mask``) are this rank's rows; the
-    default mask is the global batch's, cut to them; the loss and metrics
-    are the global batch's: sum(w·xent) and sum(w) are summed over the data
-    axes before the division, as JAX's mean over the sharded batch."""
+    Under a mesh ``tokens`` (and ``mask``) are this rank's block: its rows
+    and, under cp, its block of the sequence; the default mask is the
+    global batch's, cut to that block; the loss and metrics are the global
+    batch's: sum(w·xent) and sum(w) are summed over the data axes and cp
+    before the division, as JAX's mean over the sharded batch. Under cp
+    the causal LM's last position of a block takes the first token of the
+    next rank's block as its target, and the sequence's last position
+    (the last rank's) none."""
     spmd = _spmd(cfg, mesh)
-    if cfg.causal:
+    cp = 1 if spmd is None else spmd.cp
+    if cfg.causal and cp > 1:
+        targets, weights = _cp_targets(tokens, spmd)
+        inputs = tokens
+    elif cfg.causal:
         inputs, targets, weights = tokens, tokens[:, 1:], None
     else:
         if mask is None:
-            rows = tokens.shape[0] * (1 if spmd is None else spmd.plan.data_size)
-            mask = mlm_mask((rows,) + tuple(tokens.shape[1:]), float(mask_rate), tokens.device)
-            if spmd is not None:
-                mask = spmd.plan.data_rows(mask)
+            plan = None if spmd is None else spmd.plan
+            shape = (tokens.shape[0] * (1 if plan is None else plan.data_size),
+                     tokens.shape[1] * (1 if plan is None else plan.seq_size))
+            mask = mlm_mask(shape + tuple(tokens.shape[2:]), float(mask_rate), tokens.device)
+            if plan is not None:
+                mask = plan.local_batch(mask)
         mask = mask.to(tokens.device)
         inputs = tokens.masked_fill(mask, MASK_TOKEN)
         targets, weights = tokens, mask
     embed = params["embed"] if spmd is None else spmd.embed(params)
     h, aux = transformer_hidden(params, inputs, cfg, mesh, with_aux=True, embed=embed)
-    if cfg.causal:
+    if cfg.causal and cp == 1:
         h = h[:, :-1]
     b, t, d = h.shape
-    data_axes = () if spmd is None else spmd.plan.data_axes
+    data_axes = () if spmd is None else spmd.plan.loss_axes
     if cfg.fused_xent:
         from tf_operator_tpu_torch.ops.fused_cross_entropy import (
             fused_cross_entropy,
@@ -860,11 +924,25 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None, *,
     return total, metrics
 
 
+def _cp_targets(tokens, spmd: _Spmd):
+    """(targets [b, t], weights [b, t]) of a causal block under cp: the
+    next position's token, the block's last taking the next rank's first
+    token (all-gathered over cp), weight 0 at the sequence's end."""
+    plan = spmd.plan
+    firsts = coll.gather_no_grad(tokens[:, 0].contiguous(), spmd.mesh, (spmd.cp_axis,))
+    nxt = firsts[(plan.seq_index + 1) % plan.seq_size]
+    targets = torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
+    weights = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    if plan.seq_index == plan.seq_size - 1:
+        weights[:, -1] = False
+    return targets, weights
+
+
 def _global_ratio(num, den, spmd: _Spmd):
-    """sum(num) / max(sum(den), 1) over the data axes: num's sum is
-    differentiated (its cotangent summed back over them), den carries no
-    gradient."""
-    axes = spmd.plan.data_axes
+    """sum(num) / max(sum(den), 1) over the loss axes (the data axes and
+    cp): num's sum is differentiated (its cotangent summed back over
+    them), den carries no gradient."""
+    axes = spmd.plan.loss_axes
     total = coll.all_reduce_sum(num, spmd.mesh, axes)
     return total / torch.clamp(coll.sum_no_grad(den.detach(), spmd.mesh, axes), min=1.0)
 

@@ -6,10 +6,17 @@ over the process group of one axis of a ``DeviceMesh``
 backward is the transpose JAX uses inside ``shard_map``: a sum's
 cotangent is summed again (a psum transposes to a psum), an all-gather's
 is reduce-scattered and a reduce-scatter's all-gathered, a ring shift's
-shifted back. Megatron's pair ``tp_region_enter`` (identity forward, sum
-backward) and ``tp_region_exit`` (sum forward, identity backward) pin
-the transposes of a tensor-parallel region. An axis of size 1 (or one
-the mesh lacks) makes every collective the identity.
+shifted back, an all-to-all's sent back by the reverse all-to-all.
+Megatron's pair ``tp_region_enter`` (identity forward, sum backward) and
+``tp_region_exit`` (sum forward, identity backward) pin the transposes
+of a tensor-parallel region; ``ep_region_enter`` (this rank's block of
+the tokens, all-gather backward) and ``ep_region_exit`` (all-gather
+forward, this rank's block backward) those of an expert-parallel one.
+ep and tp are not loss axes: every rank of them holds the same copy of
+the loss, so no collective over them sums a cotangent back the way a
+data-axis collective does (``all_reduce_mean``'s ``replicated`` axes).
+An axis of size 1 (or one the mesh lacks) makes every collective the
+identity.
 
 gloo on CUDA tensors: gloo carries some collectives for CUDA tensors
 itself (``GLOO_CUDA_NATIVE``); for the others the call copies the input
@@ -34,16 +41,18 @@ import torch.distributed as dist
 # send/recv writes from the device pointer and kills the process ("writev:
 # Bad address"), so the ring shift stages through the host
 # (chip_smoke.ring_shift_on_card runs it on two ranks of the card).
-GLOO_CUDA_NATIVE = frozenset({"all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"})
+GLOO_CUDA_NATIVE = frozenset({"all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+                              "all_to_all_single"})
 
 staged_bytes = 0  # bytes copied card <-> pinned host for gloo
 collective_s = 0.0  # host seconds inside collective calls
 collective_calls = 0
+all_to_all_bytes = 0  # bytes this rank sent through all_to_all (its own chunk included)
 
 
 def reset_counters() -> None:
-    global staged_bytes, collective_s, collective_calls
-    staged_bytes, collective_s, collective_calls = 0, 0.0, 0
+    global staged_bytes, collective_s, collective_calls, all_to_all_bytes
+    staged_bytes, collective_s, collective_calls, all_to_all_bytes = 0, 0.0, 0, 0
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -134,15 +143,16 @@ def _block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axes, scale):
-        ctx.mesh, ctx.axes, ctx.scale = mesh, axes, scale
+    def forward(ctx, x, mesh, axes, scale, replicated=()):
+        ctx.mesh, ctx.scale = mesh, scale
+        ctx.axes = tuple(a for a in _active(mesh, axes) if a not in replicated)
         y = _sum(x, mesh, axes)
         return y * scale if scale != 1 else y
 
     @staticmethod
     def backward(ctx, g):
         y = _sum(g, ctx.mesh, ctx.axes)
-        return (y * ctx.scale if ctx.scale != 1 else y), None, None, None
+        return (y * ctx.scale if ctx.scale != 1 else y), None, None, None, None
 
 
 def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -152,15 +162,18 @@ def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _AllReduce.apply(x, mesh, axes, 1)
 
 
-def all_reduce_mean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """pmean over ``axes`` (a name or a tuple of names)."""
+def all_reduce_mean(x: torch.Tensor, mesh, axes, replicated: Sequence[str] = ()) -> torch.Tensor:
+    """pmean over ``axes`` (a name or a tuple of names). The backward sums
+    the cotangent over the axes but those in ``replicated``: axes whose
+    ranks all hold the same copy of the loss (ep), where the cotangent is
+    already the whole one and each rank's input takes its 1/n share."""
     active = _active(mesh, axes)
     if not active:
         return x
     n = 1
     for a in active:
         n *= axis_size(mesh, a)
-    return _AllReduce.apply(x, mesh, axes, 1.0 / n)
+    return _AllReduce.apply(x, mesh, axes, 1.0 / n, tuple(replicated))
 
 
 class _AllGather(torch.autograd.Function):
@@ -220,8 +233,8 @@ def _shift(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
         return int(ranks[tuple(c)])
 
     src, dst = peer(i - shift), peer(i + shift)
-    y = torch.empty_like(x)
     xc = x.contiguous()
+    y = torch.empty_like(xc)
 
     def run(o, inp, g):
         ops = [dist.P2POp(dist.isend, inp, dst, g), dist.P2POp(dist.irecv, o, src, g)]
@@ -303,3 +316,109 @@ def sum_no_grad(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
         return x
     with torch.no_grad():
         return _sum(x, mesh, axes)
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int):
+    """Tiled all-to-all over ``axis`` (``jax.lax.all_to_all(..., tiled=True)``):
+    ``split_dim`` cut into n blocks, block j sent to index j, the n blocks
+    received concatenated along ``concat_dim`` in index order."""
+    global all_to_all_bytes
+    n = axis_size(mesh, axis)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of size {x.shape[split_dim]} does not "
+                         f"split {n} ways over {axis!r}")
+    shape = list(x.shape)
+    # [.., n, size/n, ..] at split_dim, the n blocks leading
+    xs = x.reshape(shape[:split_dim] + [n, shape[split_dim] // n] + shape[split_dim + 1:])
+    xs = xs.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(xs)
+    _call("all_to_all_single", lambda o, i, g: dist.all_to_all_single(o, i, group=g), out, xs,
+          mesh.get_group(axis))
+    all_to_all_bytes += xs.numel() * xs.element_size()
+    # the received blocks (source index leading) concatenated along concat_dim
+    rest = shape[:split_dim] + [shape[split_dim] // n] + shape[split_dim + 1:]
+    out = out.movedim(0, concat_dim)
+    return out.reshape(rest[:concat_dim] + [n * rest[concat_dim]] + rest[concat_dim + 1:])
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis, ctx.split, ctx.concat = mesh, axis, split_dim, concat_dim
+        return _all_to_all(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_to_all(g, ctx.mesh, ctx.axis, ctx.concat, ctx.split),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int = 0,
+               concat_dim: int = 0) -> torch.Tensor:
+    """Tiled all-to-all over ``axis``; its backward is the reverse
+    all-to-all (split ``concat_dim``, concatenate ``split_dim``), as
+    ``jax.lax.all_to_all``'s transpose. With split and concat dim 0 on a
+    [S, ...] array it is JAX's untiled exchange: row block j goes to
+    index j, and row block j of the result came from index j."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+def exchange_counts(counts: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The count matrix exchange outside autograd: ``counts`` [S, ...] (row
+    j for index j) -> [S, ...] (row j from index j)."""
+    if axis_size(mesh, axis) == 1:
+        return counts
+    with torch.no_grad():
+        return _all_to_all(counts.contiguous(), mesh, axis, 0, 0)
+
+
+def gather_no_grad(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """[n, *x.shape]: every rank's ``x`` over ``axes`` (their ranks in the
+    order of a batch split over them, the first axis major), outside
+    autograd."""
+    out = x.unsqueeze(0)
+    with torch.no_grad():
+        for a in reversed(_active(mesh, axes)):
+            out = _gather(out.contiguous(), mesh, a, 0).reshape(-1, *x.shape)
+    return out
+
+
+class _EpEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _block(x, mesh, axis, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.mesh, ctx.axis, 0), None, None
+
+
+class _EpExit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _gather(x, mesh, axis, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.mesh, ctx.axis, 0), None, None
+
+
+def ep_region_enter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """This rank's block of ``x``'s rows (the tokens every ep rank holds
+    alike); the backward all-gathers the blocks' cotangents, so each rank
+    gets the whole one (never a sum: ep holds one copy of the loss)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _EpEnter.apply(x, mesh, axis)
+
+
+def ep_region_exit(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The blocks of rows all-gathered; the backward keeps this rank's
+    block of the (replicated) cotangent."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _EpExit.apply(x, mesh, axis)

@@ -174,7 +174,10 @@ class MeshPlan:
     """How one rank holds a params tree on a mesh: each leaf's placement
     (from logical axes and rules; a leaf without logical axes is
     replicated), this rank's coordinates, and the data split of a batch
-    (its block of the leading dim over the batch axes, dp then fsdp)."""
+    (its block of the leading dim over the batch axes, dp then fsdp, and
+    of the sequence dim over cp). The loss axes are the batch axes and cp:
+    a loss's numerator and denominator are summed over them, and so are
+    the gradients of the leaves not split on them."""
 
     def __init__(self, mesh, logical_axes: Any = None,
                  rules: ShardingRules = DEFAULT_RULES, rank: Optional[int] = None) -> None:
@@ -191,6 +194,11 @@ class MeshPlan:
         self.batch_part = batch_sharding(mesh, rules)[0]
         self.data_axes = tuple(a for a in DATA_AXES if self.sizes.get(a, 1) > 1)
         self.data_size, self.data_index = _blocks(mesh, self.batch_part, self.coords)
+        self.seq_part = rules.placement(mesh, ["seq"])[0]
+        self.seq_size, self.seq_index = _blocks(mesh, self.seq_part, self.coords)
+        self.loss_axes = self.data_axes + tuple(a for a in split_axes(self.seq_part)
+                                                if self.sizes[a] > 1)
+        self.loss_size = self.data_size * self.seq_size
 
     def size(self, axis: str) -> int:
         return self.sizes.get(axis, 1)
@@ -203,6 +211,20 @@ class MeshPlan:
                              f"({self.batch_part})")
         rows = n // self.data_size
         return x[self.data_index * rows:(self.data_index + 1) * rows]
+
+    def seq_cols(self, x):
+        """This rank's block of a [rows, seq, ...] array's sequence dim."""
+        t = x.shape[1]
+        if t % self.seq_size:
+            raise ValueError(f"sequence {t} does not split over {self.seq_size} cp ranks "
+                             f"({self.seq_part})")
+        cols = t // self.seq_size
+        return x[:, self.seq_index * cols:(self.seq_index + 1) * cols]
+
+    def local_batch(self, x):
+        """This rank's block of a global [batch, seq, ...] array: its data
+        rows, and of them its block of the sequence."""
+        return self.seq_cols(self.data_rows(x))
 
     def gather(self, x, placement: Sequence[MeshAxes], keep: Sequence[str] = (),
                replicated: Sequence[str] = ()):

@@ -13,13 +13,16 @@ Under a mesh (a DeviceMesh; ``logical_axes`` and ``rules`` place each
 leaf, a leaf without logical axes is replicated) each rank inits the
 whole params from the one seed and keeps its blocks, so the values equal
 the single-device init; optimizer moments live on the blocks; ``batch``
-is this rank's rows. The loss returns the global value, and each
-collective in it sums its cotangent back over the data axes (JAX's
-transposes), so a rank's gradient is the data-rank count times its share:
-the fsdp gather's backward reduce-scatters it, the step sums it over the
-data axes a leaf is not split on (one flat all-reduce per bucket) and
-divides by the count. The global-norm clip sums the squares of each
-leaf's block over exactly the axes the leaf is split on.
+is this rank's block (its rows, and under cp its block of the sequence).
+The loss returns the global value, and each collective in it sums its
+cotangent back over the loss axes (the data axes and cp: JAX's
+transposes), so a rank's gradient is the loss-rank count times its
+share: the fsdp gather's backward reduce-scatters it, the step sums it
+over the loss axes a leaf is not split on (one flat all-reduce per
+bucket) and divides by the count. ep and tp ranks hold one copy of the
+loss, and a leaf not split on them has the same gradient on each. The
+global-norm clip sums the squares of each leaf's block over exactly the
+axes the leaf is split on (an expert leaf's over ep, and fsdp on embed).
 
 ``loss_fn(params, batch, extra) -> loss`` or ``(loss, new_extra)``;
 ``init_fn(generator) -> params`` or ``(params, extra)``, where the
@@ -290,15 +293,16 @@ class Trainer:
 
     @torch.no_grad()
     def _reduce_grads(self, params: list) -> None:
-        """Sum each leaf's gradient over the data axes it is not split on
-        (bucketed flat all-reduces), then divide by the data-rank count."""
+        """Sum each leaf's gradient over the loss axes (data axes and cp) it
+        is not split on (bucketed flat all-reduces), then divide by the
+        loss-rank count."""
         plan = self.plan
-        if not plan.data_axes:
+        if not plan.loss_axes:
             return
         buckets: Dict[tuple, list] = {}
         for p, placement in zip(params, self._placements_cache):
             split = {a for part in placement for a in split_axes(part)}
-            axes = tuple(a for a in plan.data_axes if a not in split)
+            axes = tuple(a for a in plan.loss_axes if a not in split)
             if axes:
                 buckets.setdefault(axes, []).append(p.grad)
         for axes, grads in buckets.items():
@@ -314,9 +318,8 @@ class Trainer:
                                         self.mesh, axes)
                 for g, part in zip(group, flat.split([g.numel() for g in group])):
                     g.copy_(part.view_as(g))
-        n_data = plan.data_size
         for p in params:
-            p.grad.mul_(1.0 / n_data)
+            p.grad.mul_(1.0 / plan.loss_size)
 
     def _global_norm(self, grads: list):
         """The global norm of the gradients: per-leaf norms, those of split
@@ -404,7 +407,7 @@ class Trainer:
     def step(self, state: TrainState, batch):
         """One update: (state, {"loss": f32 scalar tensor}, and the
         gradients' global norm before the clip as ``grad_norm`` when one is
-        set), no host sync. Under a mesh ``batch`` is this rank's rows and
+        set), no host sync. Under a mesh ``batch`` is this rank's block and
         the loss the global batch's."""
         loss, extra = self._grads(state, batch)
         norm = self._apply(state)

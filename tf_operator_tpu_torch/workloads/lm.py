@@ -3,9 +3,9 @@
 Port of ``tf_operator_tpu/workloads/lm.py``: trains a transformer preset
 (dense or MoE under any ``moe_dispatch``, causal LM or, for ``causal:
 false`` presets such as bert-base, the masked LM with its fixed mask)
-with the Trainer, on one card or on each rank of the job's mesh (dp, fsdp
-and tp, hybrid included: ``main`` joins the gang, builds the mesh and
-hands it to the trainer and the model), on one fixed batch, synthetic
+with the Trainer, on one card or on each rank of the job's mesh (dp,
+fsdp, ep, cp and tp, hybrid included: ``main`` joins the gang, builds the
+mesh and hands it to the trainer and the model), on one fixed batch, synthetic
 batches streamed through the DeviceLoader, or a tokenized corpus memmap,
 and logs tokens/s and MFU, counted on the
 params a token touches (``n_active_params``, so top-1 MoE counts one
@@ -20,11 +20,12 @@ uses the context only through its attributes (``workload``,
 ``mesh_axes``, ``dcn_mesh_axes``, ``chips``, ``mark_first_step``, and the
 checkpointer's optional ones); a lost peer exits 138
 (``rendezvous.context.retry_on_peer_loss``). Under a mesh only rank 0
-logs the ``lm done`` line, with the mesh, and tokens/s is the global
-batch's; every rank logs an ``lm rank`` line (its losses and gradient
-norms, the digest of its replicated leaves, kernel launches, peak
-memory, host seconds in collectives and bytes staged through the
-host). A job whose checkpoints already cover its budget
+logs the ``lm done`` line, with the mesh, and tokens/s and MFU count the
+global batch's tokens once; every rank logs an ``lm rank`` line (its
+losses and gradient norms, the digest of its replicated leaves, kernel
+launches, peak memory, host seconds in collectives, bytes staged through
+the host and sent through all_to_all, and under ep with gmm the occupied
+share of its received blocks). A job whose checkpoints already cover its budget
 returns at once; a restarted one resumes from its latest checkpoint (``resumed from
 checkpoint at step N`` in the log). On the card ``main`` logs the flash
 kernels' launch counts and the unrounded last loss beside the ``lm done``
@@ -56,11 +57,12 @@ fault). Declared differences from the JAX workload:
 - Under a mesh ``batch_size`` is the global batch, split over the data
   axes (dp, fsdp): the fixed batch is drawn whole and each rank keeps its
   data rank's rows, and the loaders read as data rank of the data-rank
-  count, so tp peers read the same rows (JAX seeds ``local_loader`` by
-  process: ROADMAP F3).
+  count, so ep, cp and tp peers read the same rows (JAX seeds
+  ``local_loader`` by process: ROADMAP F3); under cp each rank then keeps
+  its block of those rows' sequence.
 - Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
-  means npy), checkpoints of a multi-process job (Queue 1 item 5), MoE
-  or an ep, cp or pp axis under a mesh.
+  means npy), checkpoints of a multi-process job (Queue 1 item 5), a pp
+  axis, MoE under a cp axis.
 """
 
 from __future__ import annotations
@@ -87,7 +89,9 @@ from tf_operator_tpu_torch.models.transformer import (
     transformer_logical_axes,
 )
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import grouped_matmul as gm
 from tf_operator_tpu_torch.parallel import collectives as coll
+from tf_operator_tpu_torch.parallel import moe
 from tf_operator_tpu_torch.parallel.mesh import mesh_shape
 from tf_operator_tpu_torch.parallel.sharding import MeshPlan
 from tf_operator_tpu_torch.rendezvous import context as rdv
@@ -215,16 +219,18 @@ def run_lm(wl: dict, device: DeviceLike = None,
     loader = lm_loader(wl, cfg, dev, skip=ckpt.resume_step(), plan=plan)
     if loader is None:
         tokens = fixed_tokens(batch, seq, cfg.vocab, dev)
-        tokens = data = tokens if plan is None else plan.data_rows(tokens)
+        tokens = data = tokens if plan is None else plan.local_batch(tokens)
     else:
         def pull():
             for b in loader:
                 if on_batch is not None:
                     on_batch(b["tokens"])
-                yield b["tokens"].long()
+                rows = b["tokens"].long()  # this data rank's rows
+                yield rows if plan is None else plan.seq_cols(rows)
 
         data = pull()
         tokens = fixed_tokens(batch, seq, cfg.vocab, dev, seed=2)
+        tokens = tokens if plan is None else plan.local_batch(tokens)
     try:
         with profile_ctx(wl.get("profile_dir")):
             state, loss, timed, step_s = ckpt.run_loop(
@@ -252,11 +258,12 @@ def router_metrics(run: LMRun) -> Optional[dict]:
     batch of a loader run): expert entropy (nats; ``uniform`` = ln E),
     drop fraction (the token choices past an expert's capacity under the
     sort and einsum dispatches; 0 under ragged and gmm) and the unweighted
-    router losses, as floats. None for a dense model. One forward pass."""
+    router losses, as floats, of the global batch. None for a dense model.
+    One forward pass, under a mesh on every rank (it runs collectives)."""
     if not run.cfg.n_experts:
         return None
     with torch.no_grad():
-        _, m = lm_loss_and_metrics(run.state.params, run.tokens, run.cfg)
+        _, m = lm_loss_and_metrics(run.state.params, run.tokens, run.cfg, mesh=run.mesh)
     return {"expert_entropy": float(m["moe_expert_entropy"]),
             "uniform": math.log(run.cfg.n_experts), "drop_frac": float(m["moe_drop_frac"]),
             "lb_loss": float(m["moe_lb_loss"]), "z_loss": float(m["moe_z_loss"])}
@@ -278,16 +285,21 @@ def rank_line(run: LMRun, rank: int) -> dict:
     included), its peak memory, host seconds in collectives and the bytes
     it staged through the host (gloo on the card)."""
     on_card = run.device.type == "cuda"
+    launches = {"flash_fwd_launches": fa.flash_fwd_launches,
+                "flash_bwd_dq_launches": fa.flash_bwd_dq_launches,
+                "flash_bwd_dkv_launches": fa.flash_bwd_dkv_launches}
+    if run.cfg.n_experts:
+        launches.update({k: getattr(gm, k) for k in (
+            "gmm_fwd_launches", "gmm_fwd_scaled_launches", "gmm_dw_launches",
+            "gmm_dw_scaled_launches")})
     return {"rank": rank, "losses": run.losses, "grad_norms": run.grad_norms,
             "replicated_sha256": replicated_digest(run),
             "step_ms": None if run.step_s is None else run.step_s * 1e3,
-            "launches": {"flash_fwd_launches": fa.flash_fwd_launches,
-                         "flash_bwd_dq_launches": fa.flash_bwd_dq_launches,
-                         "flash_bwd_dkv_launches": fa.flash_bwd_dkv_launches},
-            "flash_fwd_heads": fa.flash_fwd_heads,
+            "launches": launches, "flash_fwd_heads": fa.flash_fwd_heads,
             "peak_gb": torch.cuda.max_memory_allocated(run.device) / 1e9 if on_card else None,
             "collective_s": coll.collective_s, "collective_calls": coll.collective_calls,
-            "staged_bytes": coll.staged_bytes}
+            "staged_bytes": coll.staged_bytes, "all_to_all_bytes": coll.all_to_all_bytes,
+            "received_blocks_occupied": moe.received_blocks_occupied()}
 
 
 @rdv.retry_on_peer_loss
@@ -327,15 +339,16 @@ def main(ctx) -> None:
     run = run_lm(wl, device=dev, on_step=on_step, ckpt=ckpt, mesh=mesh)
     if mesh is not None:
         log.info("lm rank: %s", json.dumps(rank_line(run, rank)))
+    router = router_metrics(run)  # every rank of a gang takes part
+    if mesh is not None:
         rdv.leave_gang()
         if rank != 0:
             return
-    _log_done(run, wl)
+    _log_done(run, wl, router)
 
 
-def _log_done(run: LMRun, wl: dict) -> None:
+def _log_done(run: LMRun, wl: dict, router: Optional[dict]) -> None:
     preset = wl.get("preset", "tiny")
-    router = router_metrics(run)
     if router is not None:
         # collapsed routing (entropy far below ln E) is a silent quality bug:
         # surface it where operators look first
