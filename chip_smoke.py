@@ -86,18 +86,19 @@ Training path:
     restart) logs ``resumed from checkpoint at step 4``, runs the flash
     kernels exactly 2·L / L / L times for each of its 7 steps, ends at step
     11 and exits 0; its ``lm done`` line gives step time, tokens/s and MFU,
-    and its final loss is held to an uninterrupted run of the same spec.
+    and its final loss is held to an uninterrupted run of the same spec,
+    which runs beside the two incarnations.
 12b'. The gang phases, each rank the real harness with the operator's
     ``TPUJOB_*`` environment of an N-process gang, two ranks sharing the
     card over gloo (``TPUJOB_DIST_BACKEND=gloo``; NCCL refuses two ranks
     on one device): ``dist_smoke`` (``examples/smoke_h100.json``, dim 256:
-    both ranks' checksums exact; then one process as an NCCL group of
-    one; then a ring shift on two ranks, staged through the host: values,
+    both ranks' checksums exact; beside it one process as an NCCL group
+    of one and a ring shift on two ranks, staged through the host: values,
     transpose and bytes exact); ``nccl_world1`` (in this process: gqa-2048
     of phase 9 through the sharded trainer as an NCCL group of one, mesh
     fsdp 1 x tp 1, 1 + 3 steps: losses and gradient norms bitwise equal to
     phase 9's); ``mesh_train`` (gqa-2048 at full width on two ranks under
-    fsdp 2, then tp 2, 1 + 3 steps: losses and gradient norms within the
+    fsdp 2 and, at once, tp 2, 1 + 3 steps: losses and gradient norms within the
     mesh limits of phase 9's, the replicated leaves equal on both ranks,
     K1-K3 2·L / L / L a rank and step, K1 at 8 and 2 heads under tp; step
     ms, host seconds in collectives, bytes staged through the host, peak
@@ -208,6 +209,19 @@ MoE training path:
     layer-0 output of the first step against a plain f32 recompute of its
     per-shard queues (EP_LAYER_*), the same drop fraction, above 0, no
     grouped-matmul launch.
+    ``gang_resume``: checkpoints of a gang, two gangs at once through the
+    harness with the controller's warm-restart environment. ep_resume:
+    ep_train's gmm job saving every 2 steps, rank 1 exiting 138 at step 3
+    after the step-2 save committed, rank 0 on the lost peer; the
+    relaunch resumes both ranks from step 2 and its losses and gradient
+    norms at steps 3 and 4 must be ep_train's (bitwise expected, the mesh
+    limits held). tp_recut: gqa-2048 under tp 2 for 1 + 2 steps, each
+    rank logging each written block's sha256; this process restores step
+    2 at world 1 (a re-cut): the blocks cut from it must have the ranks'
+    digests and its step 3 the gang's loss (MESH_FIRST_LOSS_ATOL) and
+    gradient norm; the same restore with the two ranks' block files
+    swapped must fail both. Each rank's save stall, blocks, bytes, drain
+    and commit seconds, restore seconds and peak GB are logged.
     ``ep_cp_plants``: at 2 layers against one process's run of the same
     cut, the gmm receiver's block map built from its own counts (ep 2)
     and the ring's causal skip inverted (cp 2): each must fail the mesh
@@ -325,6 +339,7 @@ from tf_operator_tpu_torch.parallel import collectives as coll
 from tf_operator_tpu_torch.parallel import moe as moe_mod
 from tf_operator_tpu_torch.parallel.mesh import build_mesh as build_rank_mesh
 from tf_operator_tpu_torch.parallel.moe import block_layout
+from tf_operator_tpu_torch.parallel.sharding import block_counts, block_slices
 from tf_operator_tpu_torch.rendezvous.context import DIST_TIMEOUT_S
 from tf_operator_tpu_torch.serve.engine import (
     ServeConfig,
@@ -336,7 +351,7 @@ from tf_operator_tpu_torch.serve.kvcache import PagePool, SequencePages, pages_n
 from tf_operator_tpu_torch.train import checkpoint as ckpt_mod
 from tf_operator_tpu_torch.train import trajectory
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
-from tf_operator_tpu_torch.workloads.lm import fixed_tokens, router_metrics, run_lm
+from tf_operator_tpu_torch.workloads.lm import fixed_tokens, lm_trainer, router_metrics, run_lm
 from tf_operator_tpu_torch.workloads.resnet import resnet_loss, run_resnet
 from tf_operator_tpu_torch.workloads.serve import _quantile, run_serve, synthesize_requests
 
@@ -2220,16 +2235,29 @@ def phase_operator_resume(smi):
     harness: the first incarnation dies retryably (138) at step 6, the
     relaunch (the controller's gang restart) resumes from step 4's
     checkpoint and finishes the budget (step 11) through K1-K3; its final
-    loss is held to an uninterrupted run of the same spec."""
+    loss is held to an uninterrupted run of the same spec, which runs
+    beside the two incarnations (its fault marker already exists)."""
     spec = json.loads(NORTHSTAR_SPEC.read_text())
     cfg = preset_from_workload(spec["spec"]["workload"])
-    need = 2 * 12 * cfg.n_params() + (1 << 30)  # two step dirs: f32 params and moments
+    need = 4 * 12 * cfg.n_params() + (1 << 30)  # two step dirs a run: f32 params and moments
     d = ckpt_dir_with_room("operator_resume", need)
     marker = d / "died-once"
     wl = {**spec["spec"]["workload"], **RESUME_OVERRIDES, "checkpoint_dir": str(d / "ckpt"),
           "fail_marker": str(marker)}
+    # the same spec, uninterrupted: its marker exists before it starts
+    done_marker = d / "died-before"
+    done_marker.touch()
+    wl2 = {**wl, "checkpoint_dir": str(d / "ckpt2"), "fail_marker": str(done_marker)}
     torch.cuda.empty_cache()
+    log2 = d / "uninterrupted-worker-0.log"
+    uninterrupted = None
     try:
+        t3 = time.perf_counter()
+        with open(log2, "w") as log:
+            uninterrupted = subprocess.Popen(
+                [sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"],
+                env=harness_env(spec, wl2, d / "ckpt2"), cwd=REPO, stdout=log,
+                stderr=subprocess.STDOUT)
         log1 = d / "worker-0.log"
         log1.write_text("")
         rc1, s1 = run_harness(spec, wl, d / "ckpt", log1)
@@ -2251,12 +2279,8 @@ def phase_operator_resume(smi):
         want = {k: v * cfg.n_layers * steps_run for k, v in DENSE_PER_LAYER.items()}
         check(resumed["launches"] == want,
               f"operator_resume: launches {resumed['launches']} != {want}")
-        shutil.rmtree(d / "ckpt")
-        # the same spec, uninterrupted (the marker already exists)
-        log2 = d / "uninterrupted-worker-0.log"
-        log2.write_text("")
-        rc3, s3 = run_harness(spec, {**wl, "checkpoint_dir": str(d / "ckpt2")}, d / "ckpt2",
-                              log2)
+        rc3 = uninterrupted.wait(timeout=max(1.0, 900 - (time.perf_counter() - t3)))
+        s3 = time.perf_counter() - t3
         check(rc3 == 0, f"operator_resume: uninterrupted exit {rc3}:\n{log2.read_text()[-3000:]}")
         full = harness_result(log2.read_text(), "operator_resume uninterrupted")
         check(ckpt_mod.latest_checkpoint_step(str(d / "ckpt2")) == RESUME_LAST,
@@ -2266,13 +2290,17 @@ def phase_operator_resume(smi):
               f"operator_resume: final loss {resumed['final_loss']} vs uninterrupted "
               f"{full['final_loss']} (limit {OPERATOR_RESUME_LOSS_ATOL})")
     finally:
+        if uninterrupted is not None:
+            stop_gang([uninterrupted])
         shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "operator_resume", "spec": str(NORTHSTAR_SPEC.relative_to(REPO)),
           "overrides": RESUME_OVERRIDES, "exit_codes": [rc1, rc2], "resumed_from": at_restart,
           "latest_step": last, "resumed": resumed, "uninterrupted": full,
           "final_loss_diff": diff, "limit": OPERATOR_RESUME_LOSS_ATOL,
           "bitwise_equal_final_loss": diff == 0.0,
-          "incarnation_s": [s1, s2], "uninterrupted_s": s3, "card": smi})
+          "incarnation_s": [s1, s2], "uninterrupted_s": s3,
+          "note": "the uninterrupted run shares the card with the two incarnations",
+          "card": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -2353,9 +2381,10 @@ def free_port() -> int:
 
 
 def gang_env(spec: dict, wl: dict, rank: int, n: int, coordinator: str, mesh_axes: dict,
-             extra: dict) -> dict:
-    """harness_env for rank ``rank`` of an ``n``-process gang."""
-    env = harness_env(spec, wl, None)
+             extra: dict, ckpt_dir=None) -> dict:
+    """harness_env for rank ``rank`` of an ``n``-process gang (with
+    ``ckpt_dir``, the warm-restart contract the controller stamps)."""
+    env = harness_env(spec, wl, ckpt_dir)
     env.update({"TPUJOB_NUM_PROCESSES": str(n), "TPUJOB_PROCESS_ID": str(rank),
                 "TPUJOB_REPLICA_INDEX": str(rank), "TPUJOB_COORDINATOR_ADDRESS": coordinator,
                 "TPUJOB_MESH_AXES": json.dumps(mesh_axes)})
@@ -2363,10 +2392,12 @@ def gang_env(spec: dict, wl: dict, rank: int, n: int, coordinator: str, mesh_axe
     return env
 
 
-def start_gang(spec, wl, n, mesh_axes, log_dir: Path, extra: dict, prelude: str = "") -> tuple:
+def start_gang(spec, wl, n, mesh_axes, log_dir: Path, extra: dict, prelude: str = "",
+               ckpt_dir=None) -> tuple:
     """The gang's ranks, each the real harness as a subprocess logging to
     ``log_dir/rank<r>.log`` (after ``prelude``, code each rank runs first:
-    a planted fault): (processes, log paths)."""
+    a planted fault; with ``ckpt_dir``, the controller's warm-restart
+    environment): (processes, log paths)."""
     coordinator = f"localhost:{free_port()}"
     cmd = [sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"]
     if prelude:
@@ -2378,7 +2409,8 @@ def start_gang(spec, wl, n, mesh_axes, log_dir: Path, extra: dict, prelude: str 
             paths.append(log_dir / f"rank{r}.log")
             with open(paths[-1], "w") as log:
                 procs.append(subprocess.Popen(
-                    cmd, env=gang_env(spec, wl, r, n, coordinator, mesh_axes, extra), cwd=REPO,
+                    cmd, env=gang_env(spec, wl, r, n, coordinator, mesh_axes, extra, ckpt_dir),
+                    cwd=REPO,
                     stdout=log, stderr=subprocess.STDOUT))
     except BaseException:
         stop_gang(procs)
@@ -2487,19 +2519,31 @@ def ring_shift_on_card() -> dict:
 def phase_dist_smoke(smi):
     """The port's smoke entrypoint through the harness: two ranks on the
     card over gloo (examples/smoke_h100.json), every rank's checksum
-    n_dev * dim^3 within rel 1e-5 (the workload raises otherwise); then one
-    process as an NCCL group of one, whose all-reduce runs on NCCL; then
-    the ring shift on two ranks over gloo (ring_shift_on_card), the one
-    collective that stages through the host."""
+    n_dev * dim^3 within rel 1e-5 (the workload raises otherwise); beside
+    it one process as an NCCL group of one, whose all-reduce runs on
+    NCCL, and the ring shift on two ranks over gloo
+    (ring_shift_on_card), the one collective that stages through the
+    host."""
     spec = json.loads(SMOKE_SPEC.read_text())
     wl = spec["spec"]["workload"]
     env = spec["spec"]["replica_specs"]["Worker"]["template"].get("env", {})
     d = gang_dir("dist_smoke")
     out = {}
+    gangs = (("gloo_2", 2, env, "gloo"), ("nccl_1", 1, {"TPUJOB_DIST_BACKEND": "nccl"}, "nccl"))
+    started = {}
     try:
-        for label, n, extra, backend in (("gloo_2", 2, env, "gloo"),
-                                         ("nccl_1", 1, {"TPUJOB_DIST_BACKEND": "nccl"}, "nccl")):
-            rcs, secs, texts = run_gang(spec, wl, n, {}, d / label, extra, timeout=300)
+        # the two gangs and the ring shift's two ranks at once
+        for label, n, extra, _ in gangs:
+            (d / label).mkdir(parents=True)
+            started[label] = (time.perf_counter(), *start_gang(spec, wl, n, {}, d / label, extra))
+        out["ring_shift_gloo_2"] = ring_shift_on_card()
+        for label, n, extra, backend in gangs:
+            t0, procs, paths = started[label]
+            try:
+                rcs = [p.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0))) for p in procs]
+            except subprocess.TimeoutExpired:
+                check(False, f"dist_smoke {label}: a rank did not end within 300 s")
+            secs, texts = time.perf_counter() - t0, [p.read_text() for p in paths]
             check(rcs == [0] * n, f"dist_smoke {label}: exit codes {rcs}:\n{texts[0][-3000:]}")
             want = n * int(wl["dim"]) ** 3
             seen = []
@@ -2515,8 +2559,9 @@ def phase_dist_smoke(smi):
             out[label] = {"ranks": n, "backend": backend, "checksums": seen, "want": want,
                           "seconds": secs}
     finally:
+        for _, procs, _ in started.values():
+            stop_gang(procs)
         shutil.rmtree(d, ignore_errors=True)
-    out["ring_shift_gloo_2"] = ring_shift_on_card()
     emit({"phase": "dist_smoke", "spec": str(SMOKE_SPEC.relative_to(REPO)), "dim": wl["dim"],
           **out, "card": smi})
 
@@ -2594,7 +2639,8 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
     (2·L / L / L), under tp 2 at 8 query and 2 KV heads. Then each planted
     fault of MESH_PLANTS at the same width and 2 layers, 1 + 2 steps, must
     fail mesh_verdict against one process's run of that cut, and a sound
-    run of each mesh at that cut must pass it (the four gangs at once).
+    run of each mesh at that cut must pass it (the two full-depth gangs
+    at once, then the four at the cut at once).
     Logs each rank's step ms, host ms in collectives, bytes
     staged through the host and peak GB (two ranks on one card: no
     scaling figure)."""
@@ -2604,9 +2650,11 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
     d = gang_dir("mesh_train")
     out, plants = [], {}
     try:
-        for axes in MESH_TRAIN_AXES:
-            label = "_".join(f"{k}{v}" for k, v in axes.items())
-            lines, secs, texts = gang_checked(d, "mesh_train", label, axes, MESH_WL)
+        labels = {"_".join(f"{k}{v}" for k, v in axes.items()): axes for axes in MESH_TRAIN_AXES}
+        full = gangs_checked(d, "mesh_train", [(label, axes, MESH_WL, "")
+                                               for label, axes in labels.items()])
+        for label, axes in labels.items():
+            lines, secs, texts = full[label]
             failed, seen = mesh_verdict(lines, base_losses, base_norms)
             check(not failed, f"mesh_train {label}: {failed}: {seen} vs train's losses "
                   f"{base_losses[:n_steps]}, grad norms {base_norms[:n_steps]}")
@@ -2789,11 +2837,6 @@ def gangs_checked(d: Path, phase: str, runs, timeout: float = 900) -> dict:
     return out
 
 
-def gang_checked(d: Path, phase: str, label: str, axes: dict, wl: dict, prelude: str = ""):
-    """One gang of gangs_checked: (rank lines, seconds, log texts)."""
-    return gangs_checked(d, phase, [(label, axes, wl, prelude)])[label]
-
-
 def per_rank(lines) -> list:
     return [{k: x.get(k) for k in ("rank", "step_ms", "collective_s", "collective_calls",
                                   "staged_bytes", "all_to_all_bytes",
@@ -2943,6 +2986,7 @@ def phase_ep_train(smi, base_losses, base_norms):
         shutil.rmtree(d, ignore_errors=True)
     kernel_ms = ep_gmm_timing(tokens=EP_WL["batch_size"] * EP_WL["seq_len"] // 2,
                               E=cfg.n_experts, d=cfg.d_model, f=cfg.d_ff)
+    gmm_losses, gmm_norms = gmm["losses"], gmm["grad_norms"]
     emit({"phase": "ep_train", "preset": EP_WL["preset"], "batch": EP_WL["batch_size"],
           "seq": EP_WL["seq_len"], "backend": "gloo", "ranks": 2, "mesh": {"ep": 2},
           "gmm": gmm, "sort": sort, "kernel_ms_received_buffer": kernel_ms,
@@ -2950,7 +2994,7 @@ def phase_ep_train(smi, base_losses, base_norms):
           "moe_train_grad_norms": base_norms[:4],
           "note": "two ranks share one card over gloo: a path check, not a scaling figure",
           "card": smi})
-    return gmm["launches_per_rank_per_step"]
+    return gmm["launches_per_rank_per_step"], gmm_losses, gmm_norms
 
 
 def phase_cp_train(smi, base_losses, base_norms):
@@ -3033,6 +3077,248 @@ def phase_ep_cp_plants(smi):
     finally:
         shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "ep_cp_plants", "plants": plants, "card": smi})
+
+
+# gang_resume: checkpoints of a gang on the card, two gangs at once (four
+# ranks on the card) through the real harness with the controller's
+# warm-restart environment (TPUJOB_CHECKPOINT_DIR, TPUJOB_RESUME_STEP).
+# ep_resume: ep_train's gmm job (moe-small at full width and depth, ep 2,
+# 1 + 3 steps) saving every 2 steps; rank 1 exits 138 at step 3 (after
+# the step-2 save committed: the loop fences it before the exit), rank 0
+# on the lost peer; the relaunch resumes both ranks from step 2 and trains
+# steps 3 and 4, held to ep_train's losses and gradient norms at those
+# steps: bitwise expected (fixed data, deterministic kernels and gloo
+# sums), else within the mesh limits.
+EP_RESUME_WL = {**EP_WL, "checkpoint_every": 2, "checkpoint_keep": 1, "fail_at_step": 3,
+                "fail_rank": 1}
+EP_RESUME_FROM = 2
+# tp_recut: the train job (gqa-2048 at full width and depth) under tp 2
+# for 1 + 2 steps, saving at step 2 (and its final save at step 3), each
+# rank logging each written block's sha256. Then this process restores
+# step 2 at world 1 (allow_world_resize: every tp-split leaf re-cut from
+# its two blocks): each block cut from the restored state must have its
+# writer's sha256, and the restored state's next step (step 3: the same
+# params, one forward and backward, mesh_train's first-loss case) its
+# loss within MESH_FIRST_LOSS_ATOL and gradient norm within
+# MESH_GRAD_NORM_RTOL of the gang's step 3. The plant: the same restore
+# with the two ranks' block files swapped must fail both (the vocab
+# halves of the tied embedding trade places: the loss moves by O(1)).
+TP_RECUT_WL = {**TRAIN_WL, "steps": 2, "checkpoint_every": 2, "checkpoint_keep": 2,
+               "checkpoint_digests": True}
+TP_RECUT_STEP = 2
+CKPT_SAVE_LINE = re.compile(r"checkpoint save: (\{.*\})")
+
+
+def gang_ended(gang, label: str, deadline: float) -> tuple:
+    """A started gang's (exit codes, log texts), its ranks reaped by
+    ``deadline`` (perf_counter) or the phase fails."""
+    procs, paths = gang
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
+    except subprocess.TimeoutExpired:
+        stop_gang(procs)
+        check(False, f"gang_resume {label}: a rank did not end in time:\n"
+              + "\n".join(p.read_text()[-2000:] for p in paths))
+    return rcs, [p.read_text() for p in paths]
+
+
+def save_lines(texts) -> list:
+    """Each rank's ``checkpoint save`` lines (one a committed save)."""
+    return [[json.loads(x) for x in CKPT_SAVE_LINE.findall(t)] for t in texts]
+
+
+def recut_block_digests(state, manifest) -> dict:
+    """{block file: sha256} of every block of ``manifest`` cut from the
+    whole leaves of ``state`` (the writer's block bytes, on the host)."""
+    sizes = dict(zip(manifest["mesh"]["axes"], manifest["mesh"]["shape"]))
+    leaves = ckpt_mod._flatten(ckpt_mod._to_tree(state))
+    out = {}
+    for (path, leaf), rec in zip(leaves, manifest["leaves"]):
+        check(path == rec["path"], f"tp_recut: leaf {path} vs the manifest's {rec['path']}")
+        counts = block_counts(sizes, rec["placement"])
+        for b in rec["blocks"]:
+            piece = leaf[block_slices(rec["shape"], counts, b["index"])]
+            host = piece.contiguous().cpu().numpy() if isinstance(piece, torch.Tensor) \
+                else np.ascontiguousarray(piece)
+            out[b["file"]] = hashlib.sha256(memoryview(host.reshape(-1).view(np.uint8))
+                                            ).hexdigest()
+    return out
+
+
+def tp_recut_check(ckpt_dir: Path, wl: dict, lines: list, dev="cuda") -> dict:
+    """tp_recut's one-process half (see TP_RECUT_WL): the sound re-cut
+    and the swapped plant, each restored, digested and stepped."""
+    cfg = preset_from_workload(wl)
+    step_dir = ckpt_dir / f"step_{TP_RECUT_STEP}"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    logged = {}
+    for x in lines:
+        save = [s for s in x["checkpoint"]["saves"] if s["step"] == TP_RECUT_STEP]
+        check(len(save) == 1, f"tp_recut: rank {x['rank']} logged no step-2 save")
+        logged.update(save[0]["digests"])
+    files = {b["file"] for rec in manifest["leaves"] for b in rec["blocks"]}
+    check(set(logged) == files, f"tp_recut: the ranks logged {len(logged)} block digests, "
+          f"the manifest lists {len(files)} blocks")
+    gang_loss = lines[0]["losses"][TP_RECUT_STEP]
+    gang_norm = lines[0]["grad_norms"][TP_RECUT_STEP]
+    tokens = fixed_tokens(wl["batch_size"], wl["seq_len"], cfg.vocab, dev)
+    trainer = lm_trainer(wl, cfg, resolve_device(dev))
+
+    def recut(label):
+        mgr = ckpt_mod.CheckpointManager(ckpt_dir, readonly=True, world_size=1,
+                                         allow_world_resize=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = mgr.restore(trainer.state_template(), step=TP_RECUT_STEP, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        check(mgr.last_restore["recut"], f"tp_recut {label}: the restore did not re-cut")
+        got = recut_block_digests(state, manifest)
+        state.params = tree_map(lambda p: p.requires_grad_(True), state.params)
+        state, m = trainer.step(state, tokens)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, m
+        torch.cuda.empty_cache()
+        bad = sorted(f for f in files if got[f] != logged[f])
+        return {"restore_s": restore_s, "blocks_read": mgr.last_restore["blocks_read"],
+                "bytes_read": mgr.last_restore["bytes_read"], "digests_differing": len(bad),
+                "loss": loss, "loss_abs_diff": abs(loss - gang_loss), "grad_norm": norm,
+                "grad_norm_rel_diff": abs(norm - gang_norm) / gang_norm, "peak_gb": peak}
+
+    sound = recut("sound")
+    check(sound["digests_differing"] == 0, f"tp_recut: re-cut digests differ: {sound}")
+    check(sound["loss_abs_diff"] <= MESH_FIRST_LOSS_ATOL
+          and sound["grad_norm_rel_diff"] <= MESH_GRAD_NORM_RTOL,
+          f"tp_recut: world-1 step {TP_RECUT_STEP + 1} {sound} vs the gang's loss "
+          f"{gang_loss}, grad norm {gang_norm}")
+    swapped = 0
+    for rec in manifest["leaves"]:
+        if len(rec["blocks"]) == 2:  # a tp-split leaf: rank 0's block and rank 1's
+            a, b = (step_dir / x["file"] for x in rec["blocks"])
+            a.rename(step_dir / "swap.npy")
+            b.rename(a)
+            (step_dir / "swap.npy").rename(b)
+            swapped += 1
+    plant = recut("plant")
+    check(plant["digests_differing"] > 0 and plant["loss_abs_diff"] > MESH_FIRST_LOSS_ATOL,
+          f"tp_recut: the swapped blocks were not caught: {plant}")
+    return {"gang_loss": gang_loss, "gang_grad_norm": gang_norm, "sound": sound,
+            "plant": {**plant, "leaves_swapped": swapped}, "blocks": len(files),
+            "loss_limit": MESH_FIRST_LOSS_ATOL, "grad_norm_rtol": MESH_GRAD_NORM_RTOL}
+
+
+def ckpt_figures(x: dict, saves: list) -> dict:
+    """A rank's checkpoint figures from its rank line and save lines."""
+    restore = (x.get("checkpoint") or {}).get("restore") or {}
+    return {"rank": x["rank"], "peak_gb": x["peak_gb"], "step_ms": x["step_ms"],
+            "restore_s": restore.get("s"), "restore_recut": restore.get("recut"),
+            "saves": [{"step": s["step"], "stall_ms": s["stall_s"] * 1e3,
+                       "blocks": s["blocks"], "bytes": s["bytes"], "drain_s": s["drain_s"],
+                       "commit_s": s["commit_s"]} for s in saves]}
+
+
+def phase_gang_resume(smi, ep_losses, ep_norms):
+    """ep_resume and tp_recut (see EP_RESUME_WL and TP_RECUT_WL), started
+    at once; ep_resume's relaunch runs beside tp_recut's one-process half.
+    Each rank's save stall, blocks and bytes written, drain and commit
+    seconds, restore seconds and peak GB are logged; each gang's K1-K3
+    (and ep_resume's K5-K7b) launches a step must be one process's."""
+    spec = json.loads(NORTHSTAR_SPEC.read_text())
+    ep_cfg, tp_cfg = preset_from_workload(EP_RESUME_WL), preset_from_workload(TP_RECUT_WL)
+    # f32 params and two moments: tp's two steps, ep's step 2 and step 4
+    need = 12 * 2 * (ep_cfg.n_params() + tp_cfg.n_params()) + (1 << 30)
+    d = ckpt_dir_with_room("gang_resume", need)
+    ep_ckpt, tp_ckpt = d / "ep_ckpt", d / "tp_ckpt"
+    ep_wl = {**EP_RESUME_WL, "checkpoint_dir": str(ep_ckpt), "fail_marker": str(d / "died")}
+    tp_wl = {**TP_RECUT_WL, "checkpoint_dir": str(tp_ckpt)}
+    for sub in ("ep1", "ep2", "tp"):
+        (d / sub).mkdir()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    deadline = t0 + 600
+    started = []
+    try:
+        ep1 = start_gang(spec, ep_wl, 2, {"ep": 2}, d / "ep1", GLOO_ENV, ckpt_dir=ep_ckpt)
+        started.append(ep1)
+        tp = start_gang(spec, tp_wl, 2, {"tp": 2}, d / "tp", GLOO_ENV, ckpt_dir=tp_ckpt)
+        started.append(tp)
+        rcs1, texts1 = gang_ended(ep1, "ep_resume first incarnation", deadline)
+        ep1_s = time.perf_counter() - t0
+        check(rcs1 == [138, 138], f"gang_resume ep_resume: first incarnation exit codes "
+              f"{rcs1}:\n" + "\n".join(t[-3000:] for t in texts1))
+        check("fault injection: requesting retry at step 3" in texts1[1],
+              "gang_resume ep_resume: rank 1 did not die at step 3")
+        at_restart = ckpt_mod.latest_checkpoint_step(str(ep_ckpt))
+        check(at_restart == EP_RESUME_FROM and
+              ckpt_mod.checkpoint_world_size(str(ep_ckpt), at_restart) == 2,
+              f"gang_resume ep_resume: latest step {at_restart} at the restart")
+        t2 = time.perf_counter()
+        ep2 = start_gang(spec, ep_wl, 2, {"ep": 2}, d / "ep2", GLOO_ENV, ckpt_dir=ep_ckpt)
+        started.append(ep2)
+        rcs_tp, tp_texts = gang_ended(tp, "tp_recut", deadline)
+        tp_s = time.perf_counter() - t0
+        check(rcs_tp == [0, 0], f"gang_resume tp_recut: exit codes {rcs_tp}:\n"
+              + "\n".join(t[-3000:] for t in tp_texts))
+        tp_lines = rank_lines(tp_texts, "gang_resume tp_recut")
+        recut = tp_recut_check(tp_ckpt, tp_wl, tp_lines)
+        rcs2, texts2 = gang_ended(ep2, "ep_resume relaunch", deadline)
+        ep2_s = time.perf_counter() - t2
+        check(rcs2 == [0, 0], f"gang_resume ep_resume: relaunch exit codes {rcs2}:\n"
+              + "\n".join(t[-3000:] for t in texts2))
+    finally:
+        for gang in started:
+            stop_gang(gang[0])
+    try:
+        for r, text in enumerate(texts2):
+            for want in (f"warm restart: controller-declared resume step {EP_RESUME_FROM}",
+                         f"resumed from checkpoint at step {EP_RESUME_FROM}"):
+                check(want in text, f"gang_resume ep_resume: rank {r} logged no '{want}'")
+        ep_lines = rank_lines(texts2, "gang_resume ep_resume")
+        n = EP_WL["steps"] + 1 - EP_RESUME_FROM
+        want_l, want_n = ep_losses[EP_RESUME_FROM:], ep_norms[EP_RESUME_FROM:]
+        loss_diff = [abs(a - b) for a, b in zip(ep_lines[0]["losses"], want_l)]
+        norm_rel = [abs(a - b) / b for a, b in zip(ep_lines[0]["grad_norms"], want_n)]
+        check(len(loss_diff) == len(norm_rel) == n and max(loss_diff) <= MESH_LOSS_ATOL
+              and max(norm_rel) <= MESH_GRAD_NORM_RTOL,
+              f"gang_resume ep_resume: losses {ep_lines[0]['losses']} and grad norms "
+              f"{ep_lines[0]['grad_norms']} vs ep_train's {want_l}, {want_n}")
+        check(len({x["replicated_sha256"] for x in ep_lines}) == 1,
+              "gang_resume ep_resume: the ranks' replicated leaves differ")
+        for label, lines, cfg, steps, per_layer in (
+                ("ep_resume", ep_lines, ep_cfg, n, MOE_PER_LAYER),
+                ("tp_recut", tp_lines, tp_cfg, TP_RECUT_WL["steps"] + 1, DENSE_PER_LAYER)):
+            want = {k: v * cfg.n_layers * steps for k, v in per_layer.items()}
+            for x in lines:
+                got = {k: x["launches"][k] for k in want}
+                check(got == want, f"gang_resume {label}: rank {x['rank']} launches {got} "
+                      f"!= {want}")
+        ep_saves = [a + b for a, b in zip(save_lines(texts1), save_lines(texts2))]
+        check(all([s["step"] for s in x] == [EP_RESUME_FROM, EP_WL["steps"] + 1]
+                  for x in ep_saves), f"gang_resume ep_resume: saves {ep_saves}")
+        tp_saves = save_lines(tp_texts)
+        check(all([s["step"] for s in x] == [TP_RECUT_STEP, TP_RECUT_WL["steps"] + 1]
+                  for x in tp_saves), f"gang_resume tp_recut: saves {tp_saves}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "gang_resume", "backend": "gloo", "ranks": 2,
+          "ep_resume": {"preset": EP_WL["preset"], "mesh": {"ep": 2},
+                        "resumed_from": at_restart, "exit_codes": [rcs1, rcs2],
+                        "losses": ep_lines[0]["losses"], "grad_norms": ep_lines[0]["grad_norms"],
+                        "ep_train_losses": want_l, "ep_train_grad_norms": want_n,
+                        "loss_abs_diff": loss_diff, "grad_norm_rel_diff": norm_rel,
+                        "bitwise": max(loss_diff) == 0 and max(norm_rel) == 0,
+                        "per_rank": [ckpt_figures(x, s) for x, s in zip(ep_lines, ep_saves)],
+                        "incarnation_s": [ep1_s, ep2_s]},
+          "tp_recut": {"preset": TP_RECUT_WL["preset"], "mesh": {"tp": 2}, **recut,
+                       "per_rank": [ckpt_figures(x, s) for x, s in zip(tp_lines, tp_saves)],
+                       "gang_s": tp_s},
+          "note": "four ranks share one card over gloo: a path check, not a scaling figure",
+          "card": smi})
+    return {"ep_resume": {k: v / n for k, v in ep_lines[0]["launches"].items()},
+            "tp_recut": {k: v / (TP_RECUT_WL["steps"] + 1)
+                         for k, v in tp_lines[0]["launches"].items()}}
 
 
 def harness_result_done(text: str, phase: str) -> dict:
@@ -4466,7 +4752,10 @@ def main() -> int:
     del moe_run
     torch.cuda.empty_cache()
     # expert parallelism on two ranks, then the ep and cp planted faults
-    ep_counts = run_phase("ep_train", phase_ep_train, smi, moe_losses, moe_norms)
+    ep_counts, ep_losses, ep_norms = run_phase("ep_train", phase_ep_train, smi, moe_losses,
+                                               moe_norms)
+    # checkpoints of a gang: a warm gang restart and a re-cut to one process
+    resume_counts = run_phase("gang_resume", phase_gang_resume, smi, ep_losses, ep_norms)
     run_phase("ep_cp_plants", phase_ep_cp_plants, smi)
     torch.cuda.empty_cache()
     run_phase("moe_parity", phase_train_parity, dev, MOE_WL, per_layer=MOE_PER_LAYER,
@@ -4540,6 +4829,10 @@ def main() -> int:
                 impl: {rank: c[counter] for rank, c in r["launches_per_step"].items()}
                 for impl, r in cp_runs.items()},
             "ep_train_launches_per_rank_per_step": ep_counts[counter],
+            # a rank's after the warm gang restart (ep_resume) and under tp 2
+            # beside its re-cut (tp_recut)
+            "gang_resume_launches_per_rank_per_step": {
+                g: c[counter] for g, c in resume_counts.items()},
             # bf16 (the path's type) against the f32 plain version on the same
             # inputs, over every flash_check case and the train shape; the f32
             # instantiation's error beside it
@@ -4572,8 +4865,11 @@ def main() -> int:
             "source": "tf_operator_tpu_torch/ops/csrc/grouped_matmul.cu",
             "replaces": f"tf_operator_tpu/ops/grouped_matmul.py:{line}",
             "launches": moe_counts[counter],
-            # a rank's launches a step on two ranks under ep 2 (gmm)
+            # a rank's launches a step on two ranks under ep 2 (gmm), and
+            # after their warm gang restart
             "ep_train_launches_per_rank_per_step": ep_counts[counter],
+            "gang_resume_launches_per_rank_per_step": {
+                "ep_resume": resume_counts["ep_resume"][counter]},
             # bf16 (the path's type) against the f32 plain version on the same
             # inputs, over every gmm_check case and the moe_train shape; the
             # f32 instantiation's error beside it

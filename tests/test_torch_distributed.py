@@ -594,4 +594,7 @@ def test_tp_region_pair_grads_match_jax_custom_vjp(inputs, gang):
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
+    # below the test runner's own processes: on a loaded host the gang
+    # yields the cores to the other test files
+    os.nice(10)
     _worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))

@@ -6,6 +6,7 @@ model-FLOPs accounting; and the resnet workload with a stub context.
 """
 
 import logging
+import os
 from dataclasses import replace
 
 import numpy as np
@@ -24,6 +25,7 @@ from tf_operator_tpu.workloads import resnet as jwl  # noqa: E402
 from tf_operator_tpu_torch import compat  # noqa: E402
 from tf_operator_tpu_torch.models import resnet as tr  # noqa: E402
 from tf_operator_tpu_torch.train import metrics  # noqa: E402
+from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer  # noqa: E402
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig, _leaves  # noqa: E402
 from tf_operator_tpu_torch.workloads import resnet as wl_mod  # noqa: E402
 
@@ -163,11 +165,12 @@ def test_resnet_workload_main(tmp_path, caplog):
     assert streamed.data["delivered"] == 3 and all(np.isfinite(streamed.losses))
     with pytest.raises(ValueError, match="train_real"):
         wl_mod.run_resnet({**wl, "data": "idx"}, device="cpu")
-    # a multi-process job with a checkpoint_dir (Queue 1 item 5) and more
-    # than one card a process still raise, before the gang is joined
-    with pytest.raises(NotImplementedError, match="item 5"):
-        wl_mod.main(type("C", (_Ctx,), {"num_processes": 2})(
-            {**wl, "checkpoint_dir": str(tmp_path / "gang")}))
+    # a two-process job's checkpointer (made before a gang is joined, it
+    # stamps the job's world and refuses another world's step), and more
+    # than one card a process still raises, before the gang is joined
+    two = WorkloadCheckpointer({**wl, "checkpoint_dir": str(tmp_path / "gang")},
+                               ctx=type("C", (_Ctx,), {"num_processes": 2})(wl))
+    assert two.manager.world_size == 2 and not two.manager.allow_world_resize
     with pytest.raises(NotImplementedError, match="one process drives one card"):
         wl_mod.main(type("C", (_Ctx,), {"num_processes": 2, "chips": 2})(wl))
 
@@ -210,3 +213,36 @@ def test_resnet_real_data_path(tmp_path, caplog):
     with pytest.raises(AssertionError, match="below target"):
         wl_mod.train_real({**wl, "checkpoint_dir": None, "target_accuracy": 1.01},
                           device="cpu")
+
+
+def test_resnet_real_data_checkpoints_keep_world_and_depot(tmp_path):
+    """``train_real`` saves through the job's checkpointer, as the
+    fixed-data path does: the workload's ``checkpoint_keep`` leaves the
+    newest step only, the manifest carries the context's world, and each
+    committed step goes to the context's depot tagged with that world."""
+    from tf_operator_tpu.rendezvous.statechannel import ShardDepot
+    from tf_operator_tpu_torch.rendezvous.statechannel import DepotClient
+    from tf_operator_tpu_torch.train import data as td
+    from tf_operator_tpu_torch.train.checkpoint import checkpoint_world_size
+
+    rng = np.random.default_rng(1)
+    labels = rng.integers(0, 2, 20).astype(np.uint8)
+    images = (rng.random((20, 8, 8)) * 80 + labels[:, None, None] * 120).astype(np.uint8)
+    for prefix, n in (("train", 16), ("t10k", 4)):
+        td.write_idx(str(tmp_path / f"{prefix}-images-idx3-ubyte"), images[:n])
+        td.write_idx(str(tmp_path / f"{prefix}-labels-idx1-ubyte.gz"), labels[:n])
+    ckpt = tmp_path / "ckpt"
+    wl = {"variant": "tiny", "num_classes": 2, "data": "idx", "data_dir": str(tmp_path),
+          "image_size": 32, "batch_size": 8, "epochs": 1, "lr": 0.05, "crop_padding": 2,
+          "checkpoint_dir": str(ckpt), "checkpoint_every": 1, "checkpoint_keep": 1,
+          "checkpoint_async": False, "device": "cpu"}
+    depot = ShardDepot()
+    try:
+        ctx = type("C", (_Ctx,), {"num_processes": 1, "process_id": 0, "namespace": "ns",
+                                  "job_name": "real", "peer_depot": depot.url})(wl)
+        wl_mod.train_real(wl, device="cpu", ctx=ctx)
+        assert sorted(os.listdir(ckpt)) == ["step_2"]
+        assert checkpoint_world_size(str(ckpt), 2) == 1
+        assert DepotClient().step_worlds(depot.url, "ns", "real") == {1: 1, 2: 1}
+    finally:
+        depot.stop()

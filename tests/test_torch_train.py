@@ -25,6 +25,7 @@ from tf_operator_tpu.train.trainer import _make_tx  # noqa: E402
 from tf_operator_tpu_torch import compat  # noqa: E402
 from tf_operator_tpu_torch.models import transformer as tt  # noqa: E402
 from tf_operator_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from tf_operator_tpu_torch.train import checkpoint as ck  # noqa: E402
 from tf_operator_tpu_torch.train import metrics  # noqa: E402
 from tf_operator_tpu_torch.train.trainer import (  # noqa: E402
     Trainer,
@@ -247,10 +248,11 @@ def test_lm_workload_main_and_fault_injection(tmp_path, caplog):
     assert streamed.data["delivered"] == 4 and all(np.isfinite(streamed.losses))
     with pytest.raises(ValueError, match="unknown data mode"):
         lm.run_lm({**wl, "data": "tfrecord"}, device="cpu")
-    # a multi-process job with a checkpoint_dir (Queue 1 item 5) and more
-    # than one card a process still raise, before the gang is joined
-    with pytest.raises(NotImplementedError, match="item 5"):
-        lm.main(type("C", (_Ctx,), {"num_processes": 2})(
-            {**wl, "checkpoint_dir": str(tmp_path / "gang")}))
+    # a two-process job's checkpointer (made before a gang is joined, it
+    # stamps the job's world and refuses another world's step), and more
+    # than one card a process still raises, before the gang is joined
+    two = ck.WorkloadCheckpointer({**wl, "checkpoint_dir": str(tmp_path / "gang")},
+                                  ctx=type("C", (_Ctx,), {"num_processes": 2})(wl))
+    assert two.manager.world_size == 2 and not two.manager.allow_world_resize
     with pytest.raises(NotImplementedError, match="one process drives one card"):
         lm.main(type("C", (_Ctx,), {"num_processes": 2, "chips": 4})(wl))

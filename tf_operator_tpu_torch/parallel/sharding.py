@@ -9,10 +9,20 @@ tensor dimension the mesh axes it is split over, as the entries of a
 minor), with the axes the mesh lacks dropped. ``shard_tensor`` and
 ``gather_shards`` cut a whole array into a rank's block and put the
 blocks back together.
+
+The block algebra of a checkpoint (``train/checkpoint.py``): under a
+placement a dimension split over axes of sizes s1, s2 (major to minor)
+is cut into s1 * s2 equal blocks, so a leaf is a grid of blocks
+(``block_counts``); ``block_index`` is a rank's place in that grid,
+``block_owner`` the one rank that writes a block (the lowest coordinate
+along every mesh axis the leaf is not split on: one copy of a replicated
+block), and ``recut`` lists, for a block of another layout (another mesh,
+placement or world), the saved blocks it overlaps and the slice of each.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -104,6 +114,11 @@ def placements(mesh, logical_axes: Any, rules: ShardingRules = DEFAULT_RULES) ->
     return rules.placement(mesh, list(logical_axes))
 
 
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """{axis: size} of a DeviceMesh, in its order."""
+    return dict(zip(_names(mesh), (int(s) for s in mesh.mesh.shape)))
+
+
 def axis_coords(mesh, rank: int) -> Dict[str, int]:
     """{axis: index} of ``rank`` in the mesh's rank array."""
     where = np.argwhere(mesh.mesh.numpy() == rank)
@@ -116,51 +131,96 @@ def _blocks(mesh, part: MeshAxes, coords: Dict[str, int]) -> Tuple[int, int]:
     """(block count, this coordinate's block index) of one dimension: the
     dimension is cut into the product of its axes' sizes, the first axis
     major."""
-    shape = dict(zip(_names(mesh), mesh.mesh.shape))
+    shape = mesh_sizes(mesh)
     n, idx = 1, 0
     for ax in split_axes(part):
         n, idx = n * shape[ax], idx * shape[ax] + coords[ax]
     return n, idx
 
 
+def block_counts(sizes: Dict[str, int], placement: Sequence[MeshAxes]) -> Tuple[int, ...]:
+    """How many blocks each dimension is cut into under ``placement`` on a
+    mesh of axis ``sizes`` ({} or an axis the placement does not name: 1)."""
+    return tuple(int(np.prod([sizes.get(a, 1) for a in split_axes(part)], dtype=np.int64))
+                 for part in placement)
+
+
+def block_index(mesh, placement: Sequence[MeshAxes], rank: int) -> Tuple[int, ...]:
+    """``rank``'s block of a leaf under ``placement``: its index along each
+    dimension of the leaf's block grid."""
+    coords = axis_coords(mesh, rank)
+    return tuple(_blocks(mesh, part, coords)[1] for part in placement)
+
+
+def block_owner(mesh, placement: Sequence[MeshAxes], index: Sequence[int]) -> int:
+    """The rank that writes block ``index`` of a leaf: the one holding it
+    at the lowest coordinate along every mesh axis the leaf is not split
+    on (a replicated leaf's one block: the rank at the mesh's origin)."""
+    sizes = mesh_sizes(mesh)
+    coords = dict.fromkeys(sizes, 0)
+    for part, idx in zip(placement, index):
+        for ax in reversed(split_axes(part)):  # minor axis first
+            idx, coords[ax] = divmod(int(idx), sizes[ax])
+    return int(mesh.mesh.numpy()[tuple(coords[a] for a in sizes)])
+
+
+def block_slices(shape: Sequence[int], counts: Sequence[int],
+                 index: Sequence[int]) -> Tuple[slice, ...]:
+    """Where block ``index`` of a grid of ``counts`` blocks lies in a leaf of
+    global ``shape``; each dimension must divide evenly."""
+    out = []
+    for dim, (size, n, i) in enumerate(zip(shape, counts, index)):
+        if size % n:
+            raise ValueError(f"dim {dim} of size {size} does not split {n} ways")
+        step = size // n
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def recut(shape: Sequence[int], saved_sizes: Dict[str, int],
+          saved_placement: Sequence[MeshAxes], mesh=None,
+          placement: Optional[Sequence[MeshAxes]] = None, rank: int = 0) -> list:
+    """The saved blocks a new block reads: for a leaf of global ``shape``
+    saved under ``saved_placement`` on a mesh of axis sizes
+    ``saved_sizes``, and ``rank``'s block under ``placement`` on ``mesh``
+    (the whole leaf without a mesh), a list of (saved block index, the
+    slice of that block to read, where it lands in the new block)."""
+    saved = block_counts(saved_sizes, saved_placement)
+    if mesh is None:
+        want = tuple(slice(0, s) for s in shape)
+    else:
+        want = block_slices(shape, block_counts(mesh_sizes(mesh), placement),
+                            block_index(mesh, placement, rank))
+    per_dim = []
+    for size, n, w in zip(shape, saved, want):
+        step = size // n
+        hits = []
+        for i in range(w.start // step, -(-w.stop // step)):
+            lo, hi = max(w.start, i * step), min(w.stop, (i + 1) * step)
+            hits.append((i, slice(lo - i * step, hi - i * step), slice(lo - w.start,
+                                                                      hi - w.start)))
+        per_dim.append(hits)
+    return [tuple(tuple(c[k] for c in combo) for k in range(3))
+            for combo in itertools.product(*per_dim)]
+
+
 def shard_tensor(x, mesh, placement: Sequence[MeshAxes], rank: int):
     """``rank``'s block of the whole array ``x`` (numpy or torch) under
     ``placement``; each split dimension must divide evenly."""
-    coords = axis_coords(mesh, rank)
-    out = x
-    for dim, part in enumerate(placement):
-        n, idx = _blocks(mesh, part, coords)
-        if n == 1:
-            continue
-        if x.shape[dim] % n:
-            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split {n} ways "
-                             f"({part})")
-        size = x.shape[dim] // n
-        index = [slice(None)] * len(x.shape)
-        index[dim] = slice(idx * size, (idx + 1) * size)
-        out = out[tuple(index)]
-    return out
+    counts = block_counts(mesh_sizes(mesh), placement)
+    return x[block_slices(x.shape, counts, block_index(mesh, placement, rank))]
 
 
 def gather_shards(blocks: Dict[int, Any], mesh, placement: Sequence[MeshAxes]):
     """The whole numpy array from every rank's block (``{rank: block}``),
     the inverse of ``shard_tensor``; ranks holding the same block must
     hold equal copies."""
-    first = next(iter(blocks.values()))
-    counts = []
-    for dim, part in enumerate(placement):
-        n, _ = _blocks(mesh, part, axis_coords(mesh, next(iter(blocks))))
-        counts.append(n)
+    first = np.asarray(next(iter(blocks.values())))
+    counts = block_counts(mesh_sizes(mesh), placement)
     shape = tuple(s * n for s, n in zip(first.shape, counts))
-    out = np.empty(shape, dtype=np.asarray(first).dtype)
+    out = np.empty(shape, dtype=first.dtype)
     for rank, block in blocks.items():
-        coords = axis_coords(mesh, rank)
-        index = []
-        for dim, part in enumerate(placement):
-            _, idx = _blocks(mesh, part, coords)
-            size = block.shape[dim]
-            index.append(slice(idx * size, (idx + 1) * size))
-        out[tuple(index)] = np.asarray(block)
+        out[block_slices(shape, counts, block_index(mesh, placement, rank))] = np.asarray(block)
     return out
 
 

@@ -247,15 +247,27 @@ class Trainer:
                 0, tree_map(meta, state.extra))
         return self._template
 
+    def bind_checkpoints(self, manager) -> None:
+        """Hand ``manager`` this trainer's mesh and each param leaf's
+        placement, in ``_leaves`` order (the optimizer's moments share
+        them; the step count and ``extra`` are replicated), so a gang saves
+        and restores each rank's blocks. Nothing without a mesh."""
+        if self.plan is not None:
+            params = self.state_template().params
+            manager.set_layout(self.mesh, params, self._placements(params))
+
     def restore_or_init(self, seed: int = 0, manager=None) -> TrainState:
-        """Resume from ``manager``'s latest checkpoint if one exists, else
-        init fresh: the restart-based recovery contract. A restore lands
-        on the trainer's device, params requiring grad as ``init`` sets
-        them."""
-        if manager is not None and manager.latest_step() is not None:
-            state = manager.restore(self.state_template(), device=self.device)
-            state.params = tree_map(lambda p: p.requires_grad_(True), state.params)
-            return state
+        """Resume from ``manager``'s latest checkpoint if one exists (under
+        a gang the step its chief reads, on every rank), else init fresh:
+        the restart-based recovery contract. A restore lands on the
+        trainer's device, params requiring grad as ``init`` sets them."""
+        if manager is not None:
+            self.bind_checkpoints(manager)
+            step = manager.restore_step()
+            if step is not None:
+                state = manager.restore(self.state_template(), step=step, device=self.device)
+                state.params = tree_map(lambda p: p.requires_grad_(True), state.params)
+                return state
         return self.init(seed)
 
     # ---- step -----------------------------------------------------------

@@ -25,9 +25,12 @@ global batch's tokens once; every rank logs an ``lm rank`` line (its
 losses and gradient norms, the digest of its replicated leaves, kernel
 launches, peak memory, host seconds in collectives, bytes staged through
 the host and sent through all_to_all, and under ep with gmm the occupied
-share of its received blocks). A job whose checkpoints already cover its budget
-returns at once; a restarted one resumes from its latest checkpoint (``resumed from
-checkpoint at step N`` in the log). On the card ``main`` logs the flash
+share of its received blocks, and its checkpoint figures: save stalls,
+blocks and bytes written, drain, commit and restore seconds). A job
+whose checkpoints already cover its budget returns at once; a restarted
+one resumes from its latest checkpoint (``resumed from checkpoint at
+step N`` in the log; under a gang the step the chief reads, on every
+rank). On the card ``main`` logs the flash
 kernels' launch counts and the unrounded last loss beside the ``lm done``
 line.
 
@@ -60,9 +63,12 @@ fault). Declared differences from the JAX workload:
   count, so ep, cp and tp peers read the same rows (JAX seeds
   ``local_loader`` by process: ROADMAP F3); under cp each rank then keeps
   its block of those rows' sequence.
+- A gang's checkpoints are the port's sharded npy layout
+  (``train/checkpoint.py``), each rank writing its blocks; the port's own
+  key ``checkpoint_digests`` logs each written block's sha256 in the
+  ``lm rank`` line's checkpoint figures.
 - Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
-  means npy), checkpoints of a multi-process job (Queue 1 item 5), a pp
-  axis, MoE under a cp axis.
+  means npy), a pp axis, MoE under a cp axis.
 """
 
 from __future__ import annotations
@@ -186,6 +192,21 @@ def lm_loader(wl: dict, cfg: TransformerConfig, device, skip: int = 0,
     return None
 
 
+def lm_trainer(wl: dict, cfg: TransformerConfig, device: torch.device, mesh=None) -> Trainer:
+    """The workload's Trainer: AdamW at ``lr`` behind the default clip,
+    ``grad_accum``, the params placed by the transformer's logical axes
+    under a mesh."""
+    return Trainer(
+        loss_fn=lambda params, tokens, extra: lm_loss(params, tokens, cfg, mesh=mesh),
+        init_fn=lambda gen: init_transformer(cfg, gen, device),
+        config=TrainerConfig(
+            optimizer="adamw", learning_rate=float(wl.get("lr", 3e-4)),
+            grad_accum=int(wl.get("grad_accum", 1)),
+        ),
+        device=device, mesh=mesh, logical_axes=transformer_logical_axes(cfg),
+    )
+
+
 def run_lm(wl: dict, device: DeviceLike = None,
            on_step: Optional[Callable[[int], None]] = None,
            ckpt: Optional[WorkloadCheckpointer] = None,
@@ -195,7 +216,7 @@ def run_lm(wl: dict, device: DeviceLike = None,
     warmup step (from the latest checkpoint, when ``checkpoint_dir`` holds
     one), and return an LMRun. ``device`` overrides the workload's
     ``device`` key (default ``cuda``); ``ckpt`` is the checkpointer to use
-    (by default one built from ``wl``, without a job context);
+    (by default one built from ``wl`` and ``mesh``, without a job context);
     ``on_batch(tokens)`` sees each loader batch as it arrives on the
     device, before the step that reads it; ``mesh`` (a DeviceMesh this
     process is a rank of) shards the params and the batch."""
@@ -206,16 +227,8 @@ def run_lm(wl: dict, device: DeviceLike = None,
     cfg = preset_from_workload(wl)
     check_supported(cfg, mesh)
     plan = None if mesh is None else MeshPlan(mesh)
-    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
-    trainer = Trainer(
-        loss_fn=lambda params, tokens, extra: lm_loss(params, tokens, cfg, mesh=mesh),
-        init_fn=lambda gen: init_transformer(cfg, gen, dev),
-        config=TrainerConfig(
-            optimizer="adamw", learning_rate=float(wl.get("lr", 3e-4)),
-            grad_accum=int(wl.get("grad_accum", 1)),
-        ),
-        device=dev, mesh=mesh, logical_axes=transformer_logical_axes(cfg),
-    )
+    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl, mesh=mesh)
+    trainer = lm_trainer(wl, cfg, dev, mesh)
     loader = lm_loader(wl, cfg, dev, skip=ckpt.resume_step(), plan=plan)
     if loader is None:
         tokens = fixed_tokens(batch, seq, cfg.vocab, dev)
@@ -279,11 +292,12 @@ def replicated_digest(run: LMRun) -> str:
     return h.hexdigest()
 
 
-def rank_line(run: LMRun, rank: int) -> dict:
+def rank_line(run: LMRun, rank: int, ckpt: Optional[WorkloadCheckpointer] = None) -> dict:
     """What one rank of a run reports: its losses and gradient norms, the
     digest of its replicated leaves, its kernel launches (warmup
-    included), its peak memory, host seconds in collectives and the bytes
-    it staged through the host (gloo on the card)."""
+    included), its peak memory, host seconds in collectives, the bytes
+    it staged through the host (gloo on the card), and with ``ckpt`` its
+    checkpoint figures (``WorkloadCheckpointer.report``)."""
     on_card = run.device.type == "cuda"
     launches = {"flash_fwd_launches": fa.flash_fwd_launches,
                 "flash_bwd_dq_launches": fa.flash_bwd_dq_launches,
@@ -299,7 +313,8 @@ def rank_line(run: LMRun, rank: int) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated(run.device) / 1e9 if on_card else None,
             "collective_s": coll.collective_s, "collective_calls": coll.collective_calls,
             "staged_bytes": coll.staged_bytes, "all_to_all_bytes": coll.all_to_all_bytes,
-            "received_blocks_occupied": moe.received_blocks_occupied()}
+            "received_blocks_occupied": moe.received_blocks_occupied(),
+            "checkpoint": None if ckpt is None else ckpt.report()}
 
 
 @rdv.retry_on_peer_loss
@@ -326,19 +341,19 @@ def main(ctx) -> None:
             log.warning("fault injection: requesting retry at step %d", step)
             raise SystemExit(USER_RETRYABLE_CODE)
 
-    # refuses a multi-process checkpoint_dir (ROADMAP Queue 1 item 5)
-    # before the gang is joined
-    ckpt = WorkloadCheckpointer(wl, ctx=ctx)
-    steps = max(2, int(wl.get("steps", 10)))
-    if ckpt.is_complete(steps):
-        log.info("already complete (budget %d); nothing to do", steps)
-        return
     dev = rdv.local_device(ctx, wl.get("device", "cuda"))
     mesh = rdv.build_mesh(ctx, dev) if rdv.initialize_distributed(ctx, dev) else None
     rank = rdv.process_id(ctx)
+    # under a gang every rank reads the chief's latest step
+    ckpt = WorkloadCheckpointer(wl, ctx=ctx, mesh=mesh)
+    steps = max(2, int(wl.get("steps", 10)))
+    if ckpt.is_complete(steps):
+        log.info("already complete (budget %d); nothing to do", steps)
+        rdv.leave_gang()
+        return
     run = run_lm(wl, device=dev, on_step=on_step, ckpt=ckpt, mesh=mesh)
     if mesh is not None:
-        log.info("lm rank: %s", json.dumps(rank_line(run, rank)))
+        log.info("lm rank: %s", json.dumps(rank_line(run, rank, ckpt)))
     router = router_metrics(run)  # every rank of a gang takes part
     if mesh is not None:
         rdv.leave_gang()

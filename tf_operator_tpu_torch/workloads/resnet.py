@@ -13,7 +13,7 @@ workload's line: loss, step ms, images/s (the global batch's) and MFU
 the checkpointer's optional ones); a lost peer exits 138. Under a mesh
 only rank 0 logs the ``resnet done`` line, with the mesh, and every rank
 an ``resnet rank`` line (losses, K8 launches, a digest of its BN state,
-peak memory, collective seconds, staged bytes). Checkpoints hold the BN running
+peak memory, collective seconds, staged bytes, checkpoint figures). Checkpoints hold the BN running
 statistics as ``extra``; a job whose checkpoints already cover its budget
 returns at once, a restarted one resumes from its latest checkpoint.
 
@@ -56,8 +56,11 @@ workload:
   logs each cadence line's loss one step late (no sync a step).
 - Under a mesh the fixed batch is drawn whole and each rank keeps its
   data rank's rows; the loaders read as data rank of the data-rank count.
+- ``train_real`` saves through the job's ``WorkloadCheckpointer`` (its
+  keep, async, world tag and depot hook, and under a gang each rank's
+  blocks), where the JAX workload builds a bare manager.
 - Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
-  means npy), checkpoints of a multi-process job (ROADMAP Queue 1 item 5).
+  means npy).
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ from tf_operator_tpu_torch.parallel import collectives as coll
 from tf_operator_tpu_torch.parallel.mesh import mesh_shape
 from tf_operator_tpu_torch.parallel.sharding import MeshPlan
 from tf_operator_tpu_torch.rendezvous import context as rdv
-from tf_operator_tpu_torch.train.checkpoint import CheckpointManager, WorkloadCheckpointer
+from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
 from tf_operator_tpu_torch.train.data import (
     AugmentedImages,
     DeviceLoader,
@@ -207,13 +210,15 @@ def bn_digest(state) -> str:
 
 def run_resnet(wl: dict, device: DeviceLike = None,
                cfg: Optional[ResNetConfig] = None,
-               ckpt: Optional[WorkloadCheckpointer] = None, mesh=None) -> ResNetRun:
+               ckpt: Optional[WorkloadCheckpointer] = None, mesh=None,
+               on_step=None) -> ResNetRun:
     """Build the model from ``wl`` (or take ``cfg``), train ``steps`` timed
     steps after one warmup step (from the latest checkpoint, when
     ``checkpoint_dir`` holds one) on ``data: fixed`` or ``stream``, and
     return a ResNetRun. ``device`` overrides the workload's ``device`` key
     (default ``cuda``); ``ckpt`` is the checkpointer to use (by default one
-    built from ``wl``); ``mesh`` splits the batch over its data axes."""
+    built from ``wl`` and ``mesh``); ``mesh`` splits the batch over its
+    data axes; ``on_step(global_step)`` fires after every step."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     steps = max(2, int(wl.get("steps", 20)))
     batch = int(wl.get("batch_size", 128))
@@ -224,7 +229,7 @@ def run_resnet(wl: dict, device: DeviceLike = None,
     if data_mode not in ("fixed", "stream"):
         raise ValueError(f"run_resnet takes data: fixed or stream, not {data_mode!r} "
                          "(idx trains through train_real)")
-    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl)
+    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl, mesh=mesh)
     trainer = resnet_trainer(wl, cfg, dev, mesh)
     plan = None if mesh is None else MeshPlan(mesh)
     fixed = fixed_batch(batch, image_size, classes, dev)
@@ -245,7 +250,8 @@ def run_resnet(wl: dict, device: DeviceLike = None,
     try:
         with profile_ctx(wl.get("profile_dir")):
             state, loss, timed, step_s = ckpt.run_loop(
-                trainer, 0, data, steps, device_loop=int(wl.get("device_loop", 1)))
+                trainer, 0, data, steps, on_step=on_step,
+                device_loop=int(wl.get("device_loop", 1)))
     finally:
         if loader is not None:
             loader.close()
@@ -307,12 +313,16 @@ def test_split(data_dir: str, image_size: int) -> tuple:
 
 
 def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] = None,
-               ctx: Any = None, mesh=None) -> ResNetRun:
+               ctx: Any = None, mesh=None,
+               ckpt: Optional[WorkloadCheckpointer] = None) -> ResNetRun:
     """The real-image path: idx files -> prepare (3 channels, upsample) ->
     augment -> DeviceLoader -> Trainer -> periodic checkpoints -> eval-mode
     test accuracy -> ``ctx.report_eval_metrics`` (when the context has it)
     and the ``target_accuracy`` gate. Under a mesh each rank reads as its
-    data rank of the data-rank count."""
+    data rank of the data-rank count. The checkpoints go through ``ckpt``
+    (by default one built from ``wl``, ``ctx`` and ``mesh``: the
+    workload's keep, async and world tag, the depot hook, a gang's
+    blocks)."""
     dev = resolve_device(device if device is not None else wl.get("device", "cuda"))
     cfg = cfg if cfg is not None else resnet_config_from_workload(wl)
     trainer = resnet_trainer(wl, cfg, dev, mesh)
@@ -338,9 +348,11 @@ def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] 
     loader = DeviceLoader(source, dev)
     # periodic checkpoints, params and BN statistics: the Evaluator role
     # scores them as they land (workloads/eval.py, model "resnet")
-    ckpt_dir = wl.get("checkpoint_dir")
+    ckpt = ckpt if ckpt is not None else WorkloadCheckpointer(wl, ctx=ctx, mesh=mesh)
     every = int(wl.get("checkpoint_every", 0))
-    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    mgr = ckpt.manager
+    if mgr is not None:
+        trainer.bind_checkpoints(mgr)
     # the example count before sharding: the same step count on every rank
     steps_per_epoch = max(1, ds.global_n // global_batch)
     total = epochs * steps_per_epoch
@@ -355,7 +367,7 @@ def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] 
             log.warning("skipping checkpoint at step %d: loss %r", step, cur)
             mgr.wait_until_finished()
             return
-        mgr.save(step, state, wait=wait)
+        ckpt.save(step, state, wait=wait)
 
     losses: list = []
     t0 = None
@@ -404,10 +416,11 @@ def train_real(wl: dict, device: DeviceLike = None, cfg: Optional[ResNetConfig] 
     )
 
 
-def rank_line(run: ResNetRun, rank: int) -> dict:
+def rank_line(run: ResNetRun, rank: int, ckpt: Optional[WorkloadCheckpointer] = None) -> dict:
     """What one rank of a run reports: its losses, its K8 launches (warmup
     included), a digest of its BN state, peak memory, host seconds in
-    collectives and the bytes it staged through the host."""
+    collectives, the bytes it staged through the host, and with ``ckpt``
+    its checkpoint figures."""
     on_card = run.device.type == "cuda"
     return {"rank": rank, "losses": run.losses,
             "step_ms": None if run.step_s is None else run.step_s * 1e3,
@@ -415,28 +428,29 @@ def rank_line(run: ResNetRun, rank: int) -> dict:
             "bn_state_sha256": bn_digest(run.state.extra),
             "peak_gb": torch.cuda.max_memory_allocated(run.device) / 1e9 if on_card else None,
             "collective_s": coll.collective_s, "collective_calls": coll.collective_calls,
-            "staged_bytes": coll.staged_bytes}
+            "staged_bytes": coll.staged_bytes,
+            "checkpoint": None if ckpt is None else ckpt.report()}
 
 
 @rdv.retry_on_peer_loss
 def main(ctx) -> None:
     wl = ctx.workload
-    # refuses a multi-process checkpoint_dir (ROADMAP Queue 1 item 5)
-    # before the gang is joined
-    ckpt = WorkloadCheckpointer(wl, ctx=ctx)
-    steps = max(2, int(wl.get("steps", 20)))
-    if ckpt.is_complete(steps):
-        log.info("already complete (budget %d); nothing to do", steps)
-        return
     dev = rdv.local_device(ctx, wl.get("device", "cuda"))
     mesh = rdv.build_mesh(ctx, dev) if rdv.initialize_distributed(ctx, dev) else None
     rank = rdv.process_id(ctx)
+    # under a gang every rank reads the chief's latest step
+    ckpt = WorkloadCheckpointer(wl, ctx=ctx, mesh=mesh)
+    steps = max(2, int(wl.get("steps", 20)))
+    if ckpt.is_complete(steps):
+        log.info("already complete (budget %d); nothing to do", steps)
+        rdv.leave_gang()
+        return
     if wl.get("data") == "idx":
-        run = train_real(wl, device=dev, ctx=ctx, mesh=mesh)
+        run = train_real(wl, device=dev, ctx=ctx, mesh=mesh, ckpt=ckpt)
     else:
         run = run_resnet(wl, device=dev, ckpt=ckpt, mesh=mesh)
     if mesh is not None:
-        log.info("resnet rank: %s", json.dumps(rank_line(run, rank)))
+        log.info("resnet rank: %s", json.dumps(rank_line(run, rank, ckpt)))
         rdv.leave_gang()
         if rank != 0:
             return
