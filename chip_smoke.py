@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths (dense, masked-LM,
 every remat policy, MoE under every dispatch, and ResNet; one process and
-two ranks sharing the card under fsdp, tp, cp and ep meshes), its input
+ranks sharing the card under fsdp, tp, cp, ep and pp meshes), its input
 pipeline and its Evaluator on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a host with one CUDA card:
@@ -97,21 +97,24 @@ Training path:
     transpose and bytes exact); ``nccl_world1`` (in this process: gqa-2048
     of phase 9 through the sharded trainer as an NCCL group of one, mesh
     fsdp 1 x tp 1, 1 + 3 steps: losses and gradient norms bitwise equal to
-    phase 9's); ``mesh_train`` (gqa-2048 at full width on two ranks under
-    fsdp 2 and, at once, tp 2, 1 + 3 steps: losses and gradient norms within the
-    mesh limits of phase 9's, the replicated leaves equal on both ranks,
+    phase 9's); ``mesh_train``
+    (gqa-2048 at full width on two ranks under fsdp 2, cut to 6 layers,
+    and, at once, tp 2 at full depth, 1 + 3 steps: losses and gradient
+    norms within the mesh limits of one process's at the same depth
+    (phase 9's, or the cut's, made while the gangs run), the replicated
+    leaves equal on both ranks,
     K1-K3 2·L / L / L a rank and step, K1 at 8 and 2 heads under tp; step
     ms, host seconds in collectives, bytes staged through the host, peak
-    GB a rank; then a planted fault of each mesh's gradient path at 2
-    layers, which must fail those limits against one process at that cut,
-    beside a sound run of each mesh at the cut, which must pass them, the
-    four gangs at once); ``cp_train`` (gqa-2048 on two ranks under cp 2,
-    each holding 1,024 positions of every row, a gang with ring and one
-    with Ulysses attention at once, 1 + 2 steps: the same limits against
-    phase 9's, K1-K3 as the hop schedule says: under ring rank r runs r + 1
+    GB a rank; beside them a planted fault of each mesh's gradient path at
+    2 layers, which must fail those limits against one process at that
+    cut, and a sound run of each mesh at the cut, which must pass them,
+    the six gangs at once); ``cp_train`` (gqa-2048 cut to 6 layers on two
+    ranks under cp 2, each holding 1,024 positions of every row, a gang
+    with ring and one with Ulysses attention at once, 1 + 2 steps: the
+    same limits against the cut's one process, K1-K3 as the hop schedule says: under ring rank r runs r + 1
     hops a layer at 16 and 4 heads, under Ulysses one whole-sequence
     attention on 8 and 2 heads; bytes staged and sent through all_to_all);
-    ``gang_peer_loss`` (tiny LM on two ranks,
+    ``gang_peer_loss`` (beside cp_train: tiny LM on two ranks,
     rank 1 killed: rank 0 exits 138 within the gang's timeout). Two ranks
     on one card are a path check, not a scaling figure.
 12c. ``jax_trajectory``: gqa-2048 at full width and depth in f32 (TF32
@@ -222,10 +225,26 @@ MoE training path:
     gradient norm; the same restore with the two ranks' block files
     swapped must fail both. Each rank's save stall, blocks, bytes, drain
     and commit seconds, restore seconds and peak GB are logged.
-    ``ep_cp_plants``: at 2 layers against one process's run of the same
-    cut, the gmm receiver's block map built from its own counts (ep 2)
-    and the ring's causal skip inverted (cp 2): each must fail the mesh
-    limits, and the same two runs without the fault must pass them.
+    ``gang_plants`` (after ``pp_train``), ``ep_cp_plants`` line: at 2
+    layers against one process's run of the same cut, the gmm receiver's
+    block map built from its own counts (ep 2) and the ring's causal skip
+    inverted (cp 2): each must fail the mesh limits, and the same two
+    runs without the fault must pass them.
+17c. ``pp_train``: the pipeline on four ranks a gang, two gangs at once
+    (eight ranks on the card): gqa-2048 of phase 9 over pp 2 x tp 2 and
+    moe-small (gmm) over pp 2 x ep 2, both 1F1B, 1 + 3 steps; the dense
+    gang held to phase 9 by the mesh limits, the MoE gang's CE terms to
+    one process whose load-balance loss is the pipeline's (per
+    microbatch), its first router terms to that process's; K1-K3 and
+    K5/K6/K7a/K7b a rank and step as the schedule says (one forward more
+    a layer and microbatch than one process). Then ``gang_plants``,
+    ``pp_plants`` line (its gangs at once with ``ep_cp_plants``'), at 2
+    layers of the MoE gang (pp 2 x ep 2): the 1F1B backward recomputing
+    from the unmirrored microbatch's saved input and the expert gradients
+    summed over ep: each must fail the limits beside a sound run of that
+    cut, which must pass them. Each
+    rank's step ms, bubble fraction, host seconds in collectives, bytes
+    staged and sent through all_to_all, and peak GB.
 18. ``gmm_timing``: the four kernels at the moe_train shapes beside their
     bounds, their plain versions and ``torch._grouped_mm`` on the same
     expert groups (or one ``torch.mm`` of the same FLOPs where the card's
@@ -312,6 +331,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -619,8 +639,36 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj) + "\n"
+    with _EMIT_LOCK:  # whole lines, when a phase runs beside another
+        sys.stdout.write(line)
+        sys.stdout.flush()
+
+
+def beside(fn, *args):
+    """Start ``fn(*args)`` on a thread; returns the join, which re-raises
+    what the thread raised."""
+    failed = []
+
+    def run():
+        try:
+            fn(*args)
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the join
+            failed.append(exc)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if failed:
+            raise failed[0]
+
+    return join
 
 
 def nvidia_smi() -> str:
@@ -2319,6 +2367,15 @@ GLOO_ENV = {"TPUJOB_DIST_BACKEND": "gloo"}
 # batch (each fsdp rank keeps its 3 rows; tp ranks read all 6).
 MESH_TRAIN_AXES = ({"fsdp": 2}, {"tp": 2})
 MESH_WL = {**TRAIN_WL, "steps": 3}
+# Since pp_train joined the script, the fsdp 2 gang of mesh_train and the
+# cp_train gangs run the train job cut to 6 of its 12 layers (depth
+# only), held to one process's run of that cut (made while the gangs
+# run): the script took 1,219 s of its 1,200 s limit on a slow host with
+# both at full depth (PERF.md). tp 2 stays at full depth: at 6
+# layers its third update read 5.5e-3 against MESH_LOSS_ATOL, where fsdp
+# 2's passed.
+MESH_CUT_WL = {**MESH_WL, "n_layers": 6}
+MESH_TRAIN_WL = {"fsdp2": MESH_CUT_WL, "tp2": MESH_WL}
 # The sharded run against the train phase's first four steps. Only where
 # bf16 values are rounded differs: fsdp runs every product on 3 rows
 # instead of 6 (cuBLAS may pick another split of the f32 sums) and sums
@@ -2632,32 +2689,48 @@ def mesh_verdict(lines, base_losses, base_norms) -> tuple:
 
 def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
     """Two ranks share the card over gloo and train gqa-2048 at full width
-    through the harness under {"fsdp": 2} and then {"tp": 2}, 1 + 3 steps:
-    mesh_verdict passes (losses and gradient norms within the mesh limits
-    of train's first four, the replicated leaves equal on both ranks);
-    each rank launches K1/K2/K3 as many times a step as one process does
-    (2·L / L / L), under tp 2 at 8 query and 2 KV heads. Then each planted
-    fault of MESH_PLANTS at the same width and 2 layers, 1 + 2 steps, must
-    fail mesh_verdict against one process's run of that cut, and a sound
-    run of each mesh at that cut must pass it (the two full-depth gangs
-    at once, then the four at the cut at once).
-    Logs each rank's step ms, host ms in collectives, bytes
-    staged through the host and peak GB (two ranks on one card: no
-    scaling figure)."""
-    cfg = preset_from_workload(MESH_WL)
+    through the harness under {"fsdp": 2} (6 layers, MESH_CUT_WL) and
+    {"tp": 2} (full depth), 1 + 3 steps: mesh_verdict passes (losses and
+    gradient norms within the mesh limits of one process's run of the
+    same depth: train's first four, or the cut's, made here while the
+    gangs run; the replicated leaves equal on both ranks); each rank
+    launches K1/K2/K3 as many times a step as one process does (2·L / L /
+    L), under tp 2 at 8 query and 2 KV heads. Each planted fault of
+    MESH_PLANTS at the same width and 2 layers, 1 + 2 steps, must fail
+    mesh_verdict against one process's run of that cut, and a sound run
+    of each mesh at that cut must pass it (the six gangs at once). Logs
+    each rank's step ms, host ms in collectives, bytes staged through the
+    host and peak GB (two ranks on one card: no scaling figure). Returns
+    (a rank's launches a step by mesh, the 6-layer cut's losses and
+    gradient norms: cp_train's yardstick)."""
     n_steps = MESH_WL["steps"] + 1
-    want = {k: v * cfg.n_layers * n_steps for k, v in DENSE_PER_LAYER.items()}
     d = gang_dir("mesh_train")
     out, plants = [], {}
     try:
         labels = {"_".join(f"{k}{v}" for k, v in axes.items()): axes for axes in MESH_TRAIN_AXES}
-        full = gangs_checked(d, "mesh_train", [(label, axes, MESH_WL, "")
-                                               for label, axes in labels.items()])
+        sound = {"sound_" + "_".join(f"{k}{v}" for k, v in axes.items()): (axes, "")
+                 for axes in MESH_TRAIN_AXES}
+        bases = {"tp2": (base_losses, base_norms)}
+
+        def one_process_cuts():
+            for key, wl in (("fsdp2", MESH_CUT_WL), ("plants", MESH_PLANT_WL)):
+                run = run_lm(wl, device="cuda")
+                bases[key] = run.losses, run.grad_norms
+                del run
+
+        runs = gangs_checked(d, "mesh_train", [(label, axes, MESH_TRAIN_WL[label], "")
+                                               for label, axes in labels.items()] + [
+            (name, axes, MESH_PLANT_WL, prelude)
+            for name, (axes, prelude) in {**MESH_PLANTS, **sound}.items()],
+            meanwhile=one_process_cuts)
+        cut_losses, cut_norms = bases["plants"]
         for label, axes in labels.items():
-            lines, secs, texts = full[label]
-            failed, seen = mesh_verdict(lines, base_losses, base_norms)
-            check(not failed, f"mesh_train {label}: {failed}: {seen} vs train's losses "
-                  f"{base_losses[:n_steps]}, grad norms {base_norms[:n_steps]}")
+            lines, secs, texts = runs[label]
+            cfg = preset_from_workload(MESH_TRAIN_WL[label])
+            want = {k: v * cfg.n_layers * n_steps for k, v in DENSE_PER_LAYER.items()}
+            failed, seen = mesh_verdict(lines, *bases[label])
+            check(not failed, f"mesh_train {label}: {failed}: {seen} vs one process's "
+                  f"{bases[label]}")
             tp = axes.get("tp", 1)
             heads = [cfg.n_heads // tp, cfg.n_kv_heads // tp]
             for x in lines:
@@ -2666,7 +2739,8 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
                 check(x["flash_fwd_heads"] == heads, f"mesh_train {label}: K1 ran at heads "
                       f"{x['flash_fwd_heads']}, want {heads}")
             done = harness_result_done(texts[0], f"mesh_train {label}")
-            out.append({"mesh": axes, **seen,
+            out.append({"mesh": axes, "n_layers": cfg.n_layers, **seen,
+                        "base_losses": bases[label][0], "base_grad_norms": bases[label][1],
                         "step_ms": done["step_ms"], "tokens_per_s": done["tokens_per_s"],
                         "per_rank": [{k: x[k] for k in ("rank", "step_ms", "collective_s",
                                                         "collective_calls", "staged_bytes",
@@ -2675,14 +2749,6 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
                         "launches_per_rank_per_step": {k: v / n_steps
                                                        for k, v in lines[0]["launches"].items()},
                         "seconds": secs})
-        torch.cuda.empty_cache()
-        cut = run_lm(MESH_PLANT_WL, device="cuda")
-        cut_losses, cut_norms = cut.losses, cut.grad_norms
-        del cut
-        sound = {"sound_" + "_".join(f"{k}{v}" for k, v in axes.items()): (axes, "")
-                 for axes in MESH_TRAIN_AXES}
-        runs = gangs_checked(d, "mesh_train", [(name, axes, MESH_PLANT_WL, prelude) for name, (
-            axes, prelude) in {**MESH_PLANTS, **sound}.items()])
         for name, (axes, prelude) in {**MESH_PLANTS, **sound}.items():
             lines, secs, _ = runs[name]
             failed, seen = mesh_verdict(lines, cut_losses, cut_norms)
@@ -2704,13 +2770,13 @@ def phase_mesh_train(smi, base_losses, base_norms, base_step_ms):
           "grad_norm_rtol": MESH_GRAD_NORM_RTOL,
           "note": "two ranks share one card over gloo: a path check, not a scaling figure",
           "card": smi})
-    return {"_".join(f"{k}{v}" for k, v in r["mesh"].items()): r["launches_per_rank_per_step"]
-            for r in out}
+    return ({"_".join(f"{k}{v}" for k, v in r["mesh"].items()): r["launches_per_rank_per_step"]
+             for r in out}, bases["fsdp2"])
 
 
-# ep_train, cp_train and ep_cp_plants start their independent gangs at
-# once (gangs_checked: four ranks on the card), as mesh_train does its
-# plants: one after another the script took 1160 s of its 1200 s limit on
+# ep_train, cp_train and gang_plants start their independent gangs at
+# once (gangs_checked: four or more ranks on the card), as mesh_train does
+# its: one after another the script took 1160 s of its 1200 s limit on
 # a slow host ("NVIDIA H100 80GB HBM3, 700.00 W", PERF.md). Their step ms
 # are then those of two gangs sharing the card.
 # ep_train: moe_train's job (moe-small at full width and depth, 8 experts,
@@ -2783,7 +2849,7 @@ EP_LAYER_LINE = re.compile(r"ep layer: (\{.*\})")
 # bf16) for 1 + 2 steps on two ranks under cp 2, each holding its 1,024
 # positions of every row, with ring and then Ulysses attention; held to
 # train's first three losses and gradient norms by mesh_verdict.
-CP_WL = {**TRAIN_WL, "steps": 2}
+CP_WL = {**MESH_CUT_WL, "steps": 2}
 CP_IMPLS = ("ring", "ulysses")
 # Faults planted in the ep and cp paths, at a cut depth (2 layers, 1 + 2
 # steps) against a one-process run of the same cut: name -> (mesh, the
@@ -2802,12 +2868,14 @@ GMM_COUNTERS = ("gmm_fwd_launches", "gmm_fwd_scaled_launches", "gmm_dw_launches"
                 "gmm_dw_scaled_launches")
 
 
-def gangs_checked(d: Path, phase: str, runs, timeout: float = 900) -> dict:
-    """Two-rank gangs through the harness (gloo), all started at once on the
-    card: ``runs`` is (label, axes, wl, prelude) each. {label: (rank lines,
-    seconds from its start until it was reaped, log texts)}; exit 0 on both ranks
-    and one loss and gradient norm a step on each, or the phase fails. No
-    process outlives the call."""
+def gangs_checked(d: Path, phase: str, runs, timeout: float = 900, meanwhile=None) -> dict:
+    """Gangs through the harness (gloo), one rank for each device of their
+    mesh, all started at once on the card: ``runs`` is (label, axes, wl,
+    prelude) each; ``meanwhile()``, this process's own work, runs while
+    they do. {label: (rank lines, seconds from its start until it was
+    reaped, log texts)}; exit 0 on every rank and one loss and gradient
+    norm a step on each, or the phase fails. No process outlives the
+    call."""
     torch.cuda.empty_cache()
     spec = json.loads(NORTHSTAR_SPEC.read_text())
     started, out = [], {}
@@ -2815,7 +2883,10 @@ def gangs_checked(d: Path, phase: str, runs, timeout: float = 900) -> dict:
         for label, axes, wl, prelude in runs:
             (d / label).mkdir(parents=True, exist_ok=True)
             started.append((label, wl, time.perf_counter(),
-                            *start_gang(spec, wl, 2, axes, d / label, GLOO_ENV, prelude)))
+                            *start_gang(spec, wl, math.prod(axes.values()), axes, d / label,
+                                        GLOO_ENV, prelude)))
+        if meanwhile is not None:
+            meanwhile()
         for label, wl, t0, procs, paths in started:
             try:
                 rcs = [p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
@@ -2824,7 +2895,7 @@ def gangs_checked(d: Path, phase: str, runs, timeout: float = 900) -> dict:
                 check(False, f"{phase} {label}: a rank did not end within {timeout} s:\n"
                       + "\n".join(p.read_text()[-2000:] for p in paths))
             secs, texts = time.perf_counter() - t0, [p.read_text() for p in paths]
-            check(rcs == [0, 0], f"{phase} {label}: exit codes {rcs}:\n"
+            check(rcs == [0] * len(procs), f"{phase} {label}: exit codes {rcs}:\n"
                   + "\n".join(t[-3000:] for t in texts))
             lines = rank_lines(texts, f"{phase} {label}")
             n = wl["steps"] + 1
@@ -2999,9 +3070,10 @@ def phase_ep_train(smi, base_losses, base_norms):
 
 def phase_cp_train(smi, base_losses, base_norms):
     """Two gangs of two ranks, started at once, share the card over gloo
-    and train gqa-2048 at full width through the harness under {"cp": 2},
-    1 + 2 steps, one with ring and one with Ulysses attention:
-    mesh_verdict against train's first three losses and gradient norms;
+    and train gqa-2048 at full width and 6 layers (MESH_CUT_WL) through
+    the harness under {"cp": 2}, 1 + 2 steps, one with ring and one with
+    Ulysses attention: mesh_verdict against one process's first three
+    losses and gradient norms at that cut (mesh_train's);
     K1-K3 launches a rank and step as the hop schedule says
     (ring: rank r runs r + 1 hops a layer, each twice under save_mid, K1 at
     16 and 4 heads; Ulysses: one attention over the whole sequence on 8 and
@@ -3017,7 +3089,7 @@ def phase_cp_train(smi, base_losses, base_norms):
         for impl in CP_IMPLS:
             lines, secs, texts = runs[impl]
             failed, seen = mesh_verdict(lines, base_losses, base_norms)
-            check(not failed, f"cp_train {impl}: {failed}: {seen} vs train's losses "
+            check(not failed, f"cp_train {impl}: {failed}: {seen} vs the cut's losses "
                   f"{base_losses[:n]}, grad norms {base_norms[:n]}")
             for x in lines:
                 hops = x["rank"] + 1 if impl == "ring" else 1
@@ -3040,43 +3112,312 @@ def phase_cp_train(smi, base_losses, base_norms):
     kernel_ms = cp_kernel_timing(cfg, CP_WL["batch_size"], CP_WL["seq_len"])
     emit({"phase": "cp_train", "preset": CP_WL["preset"], "batch": CP_WL["batch_size"],
           "seq": CP_WL["seq_len"], "backend": "gloo", "ranks": 2, "mesh": {"cp": 2},
-          "runs": out, "kernel_ms": kernel_ms, "train_losses": base_losses[:n],
-          "train_grad_norms": base_norms[:n],
+          "n_layers": cfg.n_layers, "runs": out, "kernel_ms": kernel_ms,
+          "base_losses": base_losses[:n], "base_grad_norms": base_norms[:n],
           "note": "two ranks share one card over gloo: a path check, not a scaling figure",
           "card": smi})
     return out
 
 
-def phase_ep_cp_plants(smi):
-    """Each fault of EP_CP_PLANTS on two ranks at its cut depth, against one
-    process's run of the same cut (run_lm here, same seed and batch, flash
-    attention): it must fail mesh_verdict, and the same run without the
-    fault must pass it (the four gangs at once)."""
-    d = gang_dir("ep_cp_plants")
-    plants, bases = {}, {}
-    runs_of = {**EP_CP_PLANTS, **{"sound_" + name: (axes, wl, "") for name, (
-        axes, wl, _) in EP_CP_PLANTS.items()}}
-    try:
-        for name, (axes, wl, prelude) in EP_CP_PLANTS.items():
-            torch.cuda.empty_cache()
+def phase_gang_plants(smi):
+    """The planted faults of the ep, cp and pp paths (EP_CP_PLANTS; and
+    PP_PLANTS, both on the MoE pipeline's cut beside one sound gang), each
+    on its mesh at its cut depth beside a sound gang of that mesh at the
+    cut, all the gangs at once (at 2 layers a gang's
+    start-up is most of its time): each plant must fail mesh_verdict
+    against one process's run of the cut (run_lm here while the gangs run,
+    same seed and batch, flash attention; the pp MoE pair's CE terms against one
+    process with the pipeline's lb, over its first PP_MOE_CUT_STEPS
+    steps), and each sound gang must pass it. Prints the ep_cp_plants and
+    pp_plants lines before its checks fail it."""
+    d = gang_dir("gang_plants")
+    bases, runs_of = {}, {}
+    for name, (axes, wl, prelude) in EP_CP_PLANTS.items():
+        runs_of[name], runs_of["sound_" + name] = (axes, wl, prelude), (axes, wl, "")
+    for name, prelude in PP_PLANTS.items():
+        runs_of[name] = (PP_MOE_AXES, PP_MOE_CUT_WL, prelude)
+    runs_of["sound_pp"] = (PP_MOE_AXES, PP_MOE_CUT_WL, PP_TERMS)
+
+    def one_process_bases():
+        for name, (axes, wl, _) in EP_CP_PLANTS.items():
             base = run_lm({**wl, "attn": "flash"}, device="cuda")  # ring is flash off cp
             bases[name] = bases["sound_" + name] = base.losses, base.grad_norms
             del base
-        runs = gangs_checked(d, "ep_cp_plants", [(name, axes, wl, prelude) for name, (
-            axes, wl, prelude) in runs_of.items()])
+        # the CE terms: the router losses are per microbatch
+        _, norms, terms = pp_one_process(PP_MOE_CUT_WL, PP_MOE_AXES)
+        pp = [t["ce_loss"] for t in terms][:PP_MOE_CUT_STEPS], norms[:PP_MOE_CUT_STEPS]
+        bases.update({name: pp for name in [*PP_PLANTS, "sound_pp"]})
+
+    plants, problems = {"ep_cp_plants": {}, "pp_plants": {}}, []
+    try:
+        runs = gangs_checked(d, "gang_plants", [(name, axes, wl, prelude) for name, (
+            axes, wl, prelude) in runs_of.items()], meanwhile=one_process_bases)
         for name, (axes, wl, _) in runs_of.items():
-            lines, secs, _ = runs[name]
+            lines, secs, texts = runs[name]
+            pipeline = name in PP_PLANTS or name == "sound_pp"
+            if pipeline:
+                lines = [{**x, "losses": [t["ce_loss"] for t in tr]}
+                         for x, tr in zip(lines, pp_terms_of(texts, f"gang_plants {name}"))]
             failed, seen = mesh_verdict(lines, *bases[name])
-            if name in EP_CP_PLANTS:
-                check(bool(failed), f"ep_cp_plants: planted fault {name} passed: {seen}")
-            else:
-                check(not failed, f"ep_cp_plants: sound run {name} at the plants' cut: "
-                      f"{failed}: {seen} vs {bases[name]}")
-            plants[name] = {"mesh": axes, "n_layers": wl["n_layers"], "caught_by": failed,
-                            **seen, "base_losses": bases[name][0], "seconds": secs}
+            if not name.startswith("sound_") and not failed:
+                problems.append(f"planted fault {name} passed: {seen}")
+            elif name.startswith("sound_") and failed:
+                problems.append(f"sound run {name} at the plants' cut: {failed}: {seen} vs "
+                                f"{bases[name]}")
+            plants["pp_plants" if pipeline else "ep_cp_plants"][name] = {
+                "mesh": axes, "n_layers": wl["n_layers"], "caught_by": failed, **seen,
+                "base_losses": bases[name][0], "base_grad_norms": bases[name][1],
+                "seconds": secs}
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    emit({"phase": "ep_cp_plants", "plants": plants, "card": smi})
+    for phase, found in plants.items():
+        emit({"phase": phase, "plants": found, "card": smi})
+    check(not problems, f"gang_plants: {problems}")
+
+
+# pp_train: the pipeline (parallel/pipeline.py) on four ranks sharing the
+# card over gloo, two gangs at once (eight ranks on the card), each 1 + 3
+# steps of 1F1B:
+# - dense: the train phase's job (gqa-2048 at full width and depth, b 6,
+#   t 2048, flash, save_mid, bf16, AdamW, fixed data) over pp 2 x tp 2, 3
+#   microbatches of 2 rows, 6 layers a stage: held to train's first four
+#   losses and gradient norms by mesh_verdict. Cut from
+#   examples/llama2_70b_pp_tp_v5p256.json (pp 8 x dp 4 x tp 8, 8
+#   microbatches): a 70B state does not fit one card.
+# - MoE: moe_train's job (moe-small, gmm, top-1, full remat, b 16, t 512)
+#   over pp 2 x ep 2, 4 microbatches, each ep rank pipelining its 8 rows.
+#   Its load-balance loss is the pipeline's, per microbatch (the JAX
+#   package's definition), not moe_train's over the whole batch; through
+#   AdamW that moves the router, and the CE of one process with the
+#   batch's loss drifts from the gang's by ~2e-3 a step (6.7e-3 at step
+#   3 on "NVIDIA H100 80GB HBM3, 700.00 W", PERF.md). So the yardstick is
+#   one process of the same job whose lb is recomputed from its router
+#   logits by that definition, over the same strided microbatches and ep
+#   slices (pp_microbatch_lb; the z-loss's mean is the same either way):
+#   the gang's CE terms held to its CE by mesh_verdict (gmm drops
+#   nothing), the first step's lb and z to its within
+#   MESH_FIRST_LOSS_ATOL. Cut from examples/mixtral_8x7b_pp_ep_v5p256.json
+#   (pp 4 x dp 8 x ep 8, gmm, 8 microbatches).
+PP_DENSE_AXES = {"pp": 2, "tp": 2}
+PP_DENSE_WL = {**TRAIN_WL, "steps": 3, "pp_microbatches": 3, "pp_schedule": "1f1b"}
+PP_MOE_AXES = {"pp": 2, "ep": 2}
+PP_MOE_WL = {**MOE_WL, "steps": 3, "moe_dispatch": "gmm", "pp_microbatches": 4,
+             "pp_schedule": "1f1b"}
+# Launches a layer and microbatch under 1F1B: one process's a layer (whose
+# step runs the layer once over the whole batch) plus the forward once
+# more, the backward's recompute from the saved stage input before
+# remat's own replay: K1, and in an MoE layer two K5 and a K6.
+PP_1F1B_EXTRA = {"flash_fwd_launches": 1, "gmm_fwd_launches": 2, "gmm_fwd_scaled_launches": 1}
+# Every rank of an MoE gang logs each training call's loss terms.
+PP_TERMS = """
+import json, logging
+import torch
+import tf_operator_tpu_torch.models.transformer as T
+_sound_terms = T.lm_loss_and_metrics
+def _terms(*args, **kwargs):
+    total, m = _sound_terms(*args, **kwargs)
+    if torch.is_grad_enabled():
+        logging.getLogger("tpujob.lm").info("pp terms: %s", json.dumps(
+            {k: float(m[k]) for k in ("ce_loss", "moe_lb_loss", "moe_z_loss")}))
+    return total, m
+T.lm_loss_and_metrics = _terms
+"""
+PP_TERMS_LINE = re.compile(r"pp terms: (\{.*\})")
+# Faults planted in the pipeline, on the MoE gang cut to 2 layers (one a
+# stage), 1 + 2 steps, beside one sound gang of that cut, run with
+# EP_CP_PLANTS (phase_gang_plants): the CE terms of each must fail
+# mesh_verdict against one process's run of the cut (with the pipeline's
+# lb), and the sound gang's must pass it. The 1F1B backward recomputes
+# each tick from the input saved for the unmirrored microbatch (the
+# forward's order: with 4 microbatches 0 and 3, 1 and 2 swap); the expert
+# leaves' gradients summed over ep, which pp x ep makes a data axis (each
+# ep rank holds other experts, so the sum mixes them). The pair is held
+# over its first two steps (the first gradient and one update): at 2
+# layers the sound gang's bf16 top-1 routing parts from one process's on
+# rounding, and its third step reached 5.3e-3 and rel 1.2e-2 against the
+# limits' 5e-3 and 1e-2, where its first two sat at 1.3e-3 and 3.5e-4 and
+# the expert plant's at 8.6e-2 (loss, step 1) and 7.6e-2 (grad norm, step
+# 0), on "NVIDIA H100 80GB HBM3, 700.00 W" (readings repeated bitwise
+# across runs, PERF.md).
+PP_MOE_CUT_STEPS = 2
+PP_MOE_CUT_WL = {**PP_MOE_WL, "steps": 2, "n_layers": 2}
+PP_PLANTS = {
+    "pp_bwd_unmirrored_input": PP_TERMS + (
+        "import tf_operator_tpu_torch.parallel.pipeline as P\n"
+        "P._bwd_slot = lambda t, stage, S, M, v: t - (S - 1 - stage)\n"),
+    "pp_ep_expert_grads_summed": PP_TERMS + (
+        "import tf_operator_tpu_torch.train.trainer as TR\n"
+        "_sound_reduce = TR.Trainer._reduce_grads\n"
+        "def _planted_reduce(self, params):\n"
+        "    _sound_reduce(self, params)\n"
+        "    for p, place in zip(params, self._placements_cache):\n"
+        "        if 'ep' in [a for part in place for a in TR.split_axes(part)]:\n"
+        "            p.grad.copy_(TR.coll.sum_no_grad(p.grad, self.mesh, ('ep',)))\n"
+        "TR.Trainer._reduce_grads = _planted_reduce\n"),
+}
+
+
+def pp_microbatch_lb(logits, cfg, batch: int, n_micro: int, n_ep: int):
+    """The pipeline's load-balance loss of one layer from its router logits
+    [batch·t, E] (f32, differentiable), by the JAX package's definition
+    (transformer_hidden_pp, _reduce_aux_rows): for each microbatch (rows
+    i, i + M, ... of each ep rank's block of the batch) the load and mean
+    gate probability of each ep slice averaged over ep, E·Σ load·gate,
+    averaged over the microbatches."""
+    rows = batch // n_ep
+    lg = logits.reshape(batch, -1, cfg.n_experts)
+    total = 0.0
+    for i in range(n_micro):
+        loads, gates = [], []
+        for e in range(n_ep):
+            x = lg[e * rows + i:(e + 1) * rows:n_micro].reshape(-1, cfg.n_experts)
+            probs, _, top_i = moe_mod._routing(x, cfg.moe_top_k)
+            loads.append(torch.bincount(top_i.reshape(-1), minlength=cfg.n_experts).float()
+                         / top_i.numel())
+            gates.append(probs.mean(dim=0))
+        total = total + cfg.n_experts * (torch.stack(loads).mean(0)
+                                         * torch.stack(gates).mean(0)).sum()
+    return total / n_micro
+
+
+@contextlib.contextmanager
+def recorded_terms(micro=None):
+    """Within: each grad-enabled loss's (ce, lb, z) recorded in this
+    process; with ``micro`` = (batch, M, ep) every MoE layer's
+    load-balance loss is pp_microbatch_lb's (the gang's objective)."""
+    import tf_operator_tpu_torch.models.transformer as T
+
+    terms = []
+    sound_terms, sound_mlp = T.lm_loss_and_metrics, T._moe_mlp
+
+    def rec_terms(*args, **kwargs):
+        total, m = sound_terms(*args, **kwargs)
+        if torch.is_grad_enabled():
+            terms.append({k: float(m[k]) for k in ("ce_loss", "moe_lb_loss", "moe_z_loss")
+                          if k in m})
+        return total, m
+
+    def rec_mlp(h, lp, cfg):
+        out, aux = sound_mlp(h, lp, cfg)
+        logits = (h.reshape(-1, h.shape[-1]) @ lp["w_router"].to(h.dtype)).float()
+        return out, {**aux, "lb_loss": pp_microbatch_lb(logits, cfg, *micro)}
+
+    T.lm_loss_and_metrics = rec_terms
+    if micro is not None:
+        T._moe_mlp = rec_mlp
+    try:
+        yield terms
+    finally:
+        T.lm_loss_and_metrics, T._moe_mlp = sound_terms, sound_mlp
+
+
+def pp_terms_of(texts, phase: str) -> list:
+    """Each rank's ``pp terms`` lines: [{ce_loss, moe_lb_loss, moe_z_loss}] a step."""
+    out = []
+    for r, text in enumerate(texts):
+        found = [json.loads(x) for x in PP_TERMS_LINE.findall(text)]
+        check(bool(found), f"{phase}: rank {r} logged no pp terms line")
+        out.append(found)
+    return out
+
+
+def pp_one_process(wl, axes) -> tuple:
+    """One process's run of ``wl`` (its pp keys ignored without a mesh; an
+    MoE model with the pipeline's lb over ``axes``' ep slices): (losses,
+    grad norms, the recorded terms a step)."""
+    torch.cuda.empty_cache()
+    micro = (wl["batch_size"], wl["pp_microbatches"], axes.get("ep", 1))
+    with recorded_terms(micro if "moe" in wl["preset"] else None) as terms:
+        run = run_lm(wl, device="cuda")
+    out = run.losses, run.grad_norms, terms
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_expected(cfg, wl, axes, per_layer) -> dict:
+    """A rank's kernel launches a step under 1F1B: per_layer plus
+    PP_1F1B_EXTRA, for each of its stage's layers and each microbatch."""
+    stage_layers = cfg.n_layers // axes["pp"] // cfg.pp_chunks * cfg.pp_chunks
+    return {k: (v + PP_1F1B_EXTRA.get(k, 0)) * stage_layers * wl["pp_microbatches"]
+            for k, v in per_layer.items()}
+
+
+def pp_gang_summary(lines, texts, secs, label, per_step_want, problems: list) -> dict:
+    """A gang's figures; a rank whose launches a step are not
+    ``per_step_want`` adds to ``problems``."""
+    for x in lines:
+        got = x["launches_per_step"]
+        if got != {k: float(v) for k, v in per_step_want.items()}:
+            problems.append(f"{label}: rank {x['rank']} launches a step {got} != "
+                            f"{per_step_want}")
+    done = harness_result_done(texts[0], f"pp_train {label}")
+    return {"step_ms": done["step_ms"], "tokens_per_s": done["tokens_per_s"],
+            "pipeline": lines[0]["pipeline"], "per_rank": per_rank(lines),
+            "launches_per_rank_per_step": lines[0]["launches_per_step"], "seconds": secs}
+
+
+def phase_pp_train(smi, base_losses, base_norms):
+    """The dense and MoE pipelines on four ranks each, both gangs at once
+    (PP_DENSE_*, PP_MOE_*): mesh_verdict of the dense gang against train's
+    first four steps, of the MoE gang's CE terms against one process's
+    with the pipeline's lb (pp_microbatch_lb; run here while the gangs
+    run); the MoE gang's first router terms within MESH_FIRST_LOSS_ATOL of
+    that process's; every rank's
+    K1-K3 (and K5/K6/K7a/K7b) launches a step equal to pp_expected; K1 at
+    8 and 2 heads under tp 2 (the PP_PLANTS run in phase_gang_plants).
+    Logs each rank's step ms, host seconds in collectives,
+    bytes staged through the host and sent through all_to_all, peak GB and
+    the pipeline's bubble fraction (ranks sharing one card: a path check,
+    not a scaling figure). The phase's line is printed before its checks
+    fail it."""
+    dense_cfg = preset_from_workload(PP_DENSE_WL)
+    moe_cfg = preset_from_workload(PP_MOE_WL)
+    d = gang_dir("pp_train")
+    out, problems, one = {}, [], []
+    try:
+        runs = gangs_checked(d, "pp_train", [("dense", PP_DENSE_AXES, PP_DENSE_WL, ""),
+                                             ("moe", PP_MOE_AXES, PP_MOE_WL, PP_TERMS)],
+                             meanwhile=lambda: one.extend(pp_one_process(PP_MOE_WL, PP_MOE_AXES)))
+        m_losses, m_norms, m_terms = one
+        m_ce = [t["ce_loss"] for t in m_terms]
+        lines, secs, texts = runs["dense"]
+        failed, seen = mesh_verdict(lines, base_losses, base_norms)
+        problems += [f"dense: {f}" for f in failed]
+        heads = [dense_cfg.n_heads // 2, dense_cfg.n_kv_heads // 2]
+        if not all(x["flash_fwd_heads"] == heads for x in lines):
+            problems.append(f"dense: K1 heads {[x['flash_fwd_heads'] for x in lines]} != "
+                            f"{heads}")
+        out["dense"] = {"mesh": PP_DENSE_AXES, **seen, **pp_gang_summary(
+            lines, texts, secs, "dense", pp_expected(dense_cfg, PP_DENSE_WL, PP_DENSE_AXES,
+                                                     DENSE_PER_LAYER), problems)}
+        lines, secs, texts = runs["moe"]
+        terms = pp_terms_of(texts, "pp_train moe")
+        ce_lines = [{**x, "losses": [t["ce_loss"] for t in tr]} for x, tr in zip(lines, terms)]
+        failed, seen = mesh_verdict(ce_lines, m_ce, m_norms)
+        first = terms[0][0]
+        router = {"lb": first["moe_lb_loss"], "z": first["moe_z_loss"],
+                  "recomputed_lb": m_terms[0]["moe_lb_loss"],
+                  "recomputed_z": m_terms[0]["moe_z_loss"]}
+        for key in ("lb", "z"):
+            if abs(router[key] - router["recomputed_" + key]) > MESH_FIRST_LOSS_ATOL:
+                failed.append(f"first {key} {router[key]} vs {router['recomputed_' + key]}")
+        problems += [f"moe: {f}" for f in failed]
+        out["moe"] = {"mesh": PP_MOE_AXES, **seen, "router_first_step": router,
+                      "one_process_ce": m_ce, "one_process_losses": m_losses,
+                      "one_process_grad_norms": m_norms,
+                      **pp_gang_summary(lines, texts, secs, "moe",
+                                        pp_expected(moe_cfg, PP_MOE_WL, PP_MOE_AXES,
+                                                    MOE_PER_LAYER), problems)}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "pp_train", "backend": "gloo", "ranks": 4, "runs": out,
+          "train_losses": base_losses[:4], "train_grad_norms": base_norms[:4],
+          "problems": problems,
+          "note": "four ranks a gang, two gangs share one card over gloo: a path check, "
+                  "not a scaling figure", "card": smi})
+    check(not problems, f"pp_train: {problems}")
+    return {label: r["launches_per_rank_per_step"] for label, r in out.items()}
 
 
 # gang_resume: checkpoints of a gang on the card, two gangs at once (four
@@ -4712,10 +5053,12 @@ def main() -> int:
     run_phase("nccl_world1", phase_nccl_world1, smi, train_losses, train_norms, train_step_ms,
               dev)
     torch.cuda.empty_cache()
-    mesh_counts = run_phase("mesh_train", phase_mesh_train, smi, train_losses, train_norms,
-                            train_step_ms)
-    cp_runs = run_phase("cp_train", phase_cp_train, smi, train_losses, train_norms)
-    run_phase("gang_peer_loss", phase_gang_peer_loss, smi)
+    mesh_counts, cut_base = run_phase("mesh_train", phase_mesh_train, smi, train_losses,
+                                      train_norms, train_step_ms)
+    # the peer-loss gang (tiny, mostly waiting) runs beside cp_train's
+    peer = beside(run_phase, "gang_peer_loss", phase_gang_peer_loss, smi)
+    cp_runs = run_phase("cp_train", phase_cp_train, smi, *cut_base)
+    peer()
     run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
     run_phase("jax_trajectory_bert", phase_jax_trajectory, dev, smi, trajectory.BERT_ARTIFACT,
               phase="jax_trajectory_bert")
@@ -4756,7 +5099,10 @@ def main() -> int:
                                                moe_norms)
     # checkpoints of a gang: a warm gang restart and a re-cut to one process
     resume_counts = run_phase("gang_resume", phase_gang_resume, smi, ep_losses, ep_norms)
-    run_phase("ep_cp_plants", phase_ep_cp_plants, smi)
+    # pipeline parallelism: four ranks a gang, dense and MoE at once
+    pp_counts = run_phase("pp_train", phase_pp_train, smi, train_losses, train_norms)
+    # the ep, cp and pp planted faults beside their sound runs, all at once
+    run_phase("gang_plants", phase_gang_plants, smi)
     torch.cuda.empty_cache()
     run_phase("moe_parity", phase_train_parity, dev, MOE_WL, per_layer=MOE_PER_LAYER,
               phase="moe_parity", bf16_atol=PARITY_MOE_BF16_LOSS_ATOL)
@@ -4829,6 +5175,9 @@ def main() -> int:
                 impl: {rank: c[counter] for rank, c in r["launches_per_step"].items()}
                 for impl, r in cp_runs.items()},
             "ep_train_launches_per_rank_per_step": ep_counts[counter],
+            # a rank's under the 1F1B pipeline (pp 2 x tp 2 dense, pp 2 x ep 2 MoE)
+            "pp_train_launches_per_rank_per_step": {g: c[counter]
+                                                    for g, c in pp_counts.items()},
             # a rank's after the warm gang restart (ep_resume) and under tp 2
             # beside its re-cut (tp_recut)
             "gang_resume_launches_per_rank_per_step": {
@@ -4868,6 +5217,8 @@ def main() -> int:
             # a rank's launches a step on two ranks under ep 2 (gmm), and
             # after their warm gang restart
             "ep_train_launches_per_rank_per_step": ep_counts[counter],
+            # a rank's under the 1F1B pipeline over pp 2 x ep 2
+            "pp_train_launches_per_rank_per_step": {"moe": pp_counts["moe"][counter]},
             "gang_resume_launches_per_rank_per_step": {
                 "ep_resume": resume_counts["ep_resume"][counter]},
             # bf16 (the path's type) against the f32 plain version on the same

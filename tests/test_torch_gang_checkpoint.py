@@ -11,7 +11,8 @@ time on disjoint ranks.
 - Same-mesh resume: the LM workload (``run_lm``) under fsdp 2, tp 2,
   ep 2 (gmm, ``tiny-moe``) and cp 2 (ring), and the ResNet workload
   (``run_resnet``) under dp 2 (the BN state replicated), each with an
-  async and a sync checkpointer. The first incarnation trains 3 steps,
+  async and a sync checkpointer; the LM pipelined under pp 2 x tp 2 on
+  all four ranks, async. The first incarnation trains 3 steps,
   saving at step 2, and stops after step 3 without its final save; the
   second runs the same job, which resumes from step 2 and runs step 3.
   Every restored leaf equals the one saved, bitwise, on every rank, and
@@ -19,7 +20,11 @@ time on disjoint ranks.
 - Re-cuts: the fsdp 2 step restored under tp 2 (second incarnation) and
   by one process (the test process), whose state, saved as a one-process
   step, the JAX package restores bitwise and an fsdp 2 gang restores
-  (``allow_world_resize``); every re-cut leaf equals the gathered state.
+  (``allow_world_resize``); the pp 2 x tp 2 step restored by one process;
+  every re-cut leaf equals the gathered state.
+- A checkpoint-cadence directive mid-run under fsdp 2: the chief polls
+  it, every rank saves at the new cadence from the same step, and every
+  save commits.
 - Torn and live saves: rank 1's drain stops for good at its second block
   (what a rank killed mid-drain leaves: some blocks, no marker); the
   chief's fence raises, neither package's reader finds the step, and the
@@ -70,15 +75,21 @@ CASES = {
     "ep2": ({"ep": 2}, {**LM_WL, "preset": "tiny-moe", "moe_dispatch": "gmm"}),
     "cp2": ({"cp": 2}, {**LM_WL, "preset": "tiny", "attn": "ring"}),
     "resnet_dp2": ({"dp": 2}, RESNET_WL),
+    "pp2tp2": ({"pp": 2, "tp": 2}, {**LM_WL, "preset": "tiny", "pp_microbatches": 2}),
 }
 MODES = ("async", "sync")
-RUNS = [f"{c}_{m}" for c in CASES for m in MODES]
-# each round's runs at once, on ranks 0-1 and 2-3
+RUNS = [f"{c}_{m}" for c in CASES for m in MODES if c != "pp2tp2"] + ["pp2tp2_async"]
+# each round's runs at once, on ranks 0-1 and 2-3 (a four-rank run alone)
 ROUNDS = {
-    "a": [[f"{c}_async", f"{c}_sync"] for c in CASES] + [["torn", "live"]],
-    "b": [[f"{c}_async", f"{c}_sync"] for c in CASES] + [["recut_tp2", "sweep"],
-                                                         ["world1_fsdp2"]],
+    "a": [[f"{c}_async", f"{c}_sync"] for c in CASES if c != "pp2tp2"] + [
+        ["pp2tp2_async"], ["torn", "live"]],
+    "b": [[f"{c}_async", f"{c}_sync"] for c in CASES if c != "pp2tp2"] + [
+        ["pp2tp2_async"], ["recut_tp2", "sweep"], ["world1_fsdp2", "cadence"]],
 }
+# the cadence run: every 5 steps until the chief's directive (polled once
+# the step reaches 2) sets every 2: saves at 4, 6 and the final 7
+CADENCE_WL = {**LM_WL, "preset": "tiny", "steps": 6, "checkpoint_every": 5,
+              "cadence_poll_s": 0}
 COMMIT_TIMEOUT_S = 1.0  # the torn save's: the chief gives up this soon
 TORN_HOLD_S = 6.0  # the torn rank's drain stays stopped this long
 
@@ -122,8 +133,8 @@ def _workload_run(name: str, phase: str, mesh, rank: int, conf: dict) -> dict:
     case, mode = name.rsplit("_", 1)
     axes, wl = CASES[case]
     d = conf["dirs"][name]
-    ctx = SimpleNamespace(num_processes=2, process_id=rank, namespace=JOB[0],
-                          job_name=JOB[1], peer_depot="", restore_peers=[])
+    ctx = SimpleNamespace(num_processes=int(mesh.mesh.numel()), process_id=rank,
+                          namespace=JOB[0], job_name=JOB[1], peer_depot="", restore_peers=[])
     if name == "fsdp2_async":  # through the depot: pushed, then pulled into an empty dir
         if phase == "a":
             ctx.peer_depot = conf["depot"]
@@ -229,6 +240,26 @@ def _restored_by(mesh, d: str, world_size: int, **kw) -> dict:
     return {"restored": _wire(state), "restore": mgr.last_restore}
 
 
+def _cadence(mesh, rank: int, conf: dict) -> dict:
+    """The LM workload under a cadence directive the chief polls mid-run:
+    each rank's saves, the acks it sent, its cadence and the committed
+    steps."""
+    from tf_operator_tpu_torch.train.checkpoint import WorkloadCheckpointer
+    from tf_operator_tpu_torch.workloads import lm
+
+    wl = {**CADENCE_WL, "checkpoint_dir": conf["dirs"]["cadence"]}
+    acks = []
+    ctx = SimpleNamespace(
+        num_processes=2, process_id=rank, namespace=JOB[0], job_name=JOB[1], peer_depot="",
+        restore_peers=[], ack_checkpoint_cadence=lambda e, s: acks.append((e, s)),
+        poll_checkpoint_cadence_directive=lambda: (
+            {"epoch": 1, "checkpoint_every": 2} if ck._step >= 2 else None))
+    ck = WorkloadCheckpointer(wl, ctx=ctx, mesh=mesh)
+    lm.run_lm(wl, device="cpu", ckpt=ck, mesh=mesh)
+    return {"saves": [x["step"] for x in ck.manager.saves], "acks": acks, "every": ck.every,
+            "steps": ck.manager.all_steps()}
+
+
 def _run(name: str, phase: str, mesh, rank: int, conf: dict) -> dict:
     from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -239,6 +270,8 @@ def _run(name: str, phase: str, mesh, rank: int, conf: dict) -> dict:
         return _torn(mesh, rank, conf)
     if name == "live":
         return _live(mesh, rank, conf)
+    if name == "cadence":
+        return _cadence(mesh, rank, conf)
     if name == "recut_tp2":
         return _restored_by(mesh, dirs["fsdp2_async"], 2)
     if name == "sweep":  # the next incarnation's chief sweeps the torn save
@@ -256,6 +289,10 @@ def _run(name: str, phase: str, mesh, rank: int, conf: dict) -> dict:
         refused = str(exc)
     return {**_restored_by(mesh, dirs["world1"], 2, allow_world_resize=True),
             "refused": refused}
+
+
+def _n(axes: dict) -> int:
+    return int(np.prod(list(axes.values())))
 
 
 def _axes(name: str) -> dict:
@@ -276,10 +313,14 @@ def _worker(rank: int, world: int, ports: list, d: Path) -> None:
                                 world_size=world, timeout=timedelta(seconds=120))
         for rnd in ROUNDS[phase]:
             # every rank takes part in building every mesh
-            meshes = [(name, 2 * i, device_mesh(*mesh_ranks(_axes(name), range(2 * i, 2 * i + 2))))
-                      for i, name in enumerate(rnd)]
-            for name, first, mesh in meshes:
-                if first <= rank < first + 2:
+            first, meshes = 0, []
+            for name in rnd:
+                n = _n(_axes(name))
+                meshes.append((name, first, n, device_mesh(*mesh_ranks(_axes(name),
+                                                                       range(first, first + n)))))
+                first += n
+            for name, first, n, mesh in meshes:
+                if first <= rank < first + n:
                     out = _run(name, phase, mesh, rank - first, conf)
                     path = d / f"{phase}_{name}.{rank - first}.pt"
                     torch.save(out, path.with_suffix(".tmp"))
@@ -325,8 +366,8 @@ class _Gang:
         assert set(self.rcs.values()) == {0}, f"exit codes {self.rcs}:\n{logs}"
 
     def result(self, phase: str, name: str) -> list:
-        """A run's two ranks' results, as soon as they are written."""
-        paths = [self.d / f"{phase}_{name}.{i}.pt" for i in range(2)]
+        """A run's ranks' results, as soon as they are written."""
+        paths = [self.d / f"{phase}_{name}.{i}.pt" for i in range(_n(_axes(name)))]
         while not all(p.exists() for p in paths):
             if any(p.poll() not in (None, 0) for p in self.procs.values()) or all(
                     p.poll() is not None for p in self.procs.values()):
@@ -357,7 +398,7 @@ def depot():
 @pytest.fixture(scope="module")
 def gang(tmp_path_factory, depot):
     d = tmp_path_factory.mktemp("gloo-gang-ckpt")
-    names = RUNS + ["fsdp2_peer", "torn", "live", "world1"]
+    names = RUNS + ["fsdp2_peer", "torn", "live", "world1", "cadence"]
     conf = {"depot": depot.url, "dirs": {n: str(d / "ckpt" / n) for n in names}}
     conf["dirs"]["world1_ready"] = str(d / "world1.ready")
     g = _Gang(d, conf)
@@ -372,7 +413,7 @@ def gang(tmp_path_factory, depot):
 def _host_mesh(axes: dict):
     from tf_operator_tpu_torch.parallel.mesh import device_mesh, mesh_ranks
 
-    return device_mesh(*mesh_ranks(axes, range(2)))
+    return device_mesh(*mesh_ranks(axes, range(_n(axes))))
 
 
 def _manifest(d: str, step: int) -> dict:
@@ -380,7 +421,7 @@ def _manifest(d: str, step: int) -> dict:
 
 
 def _gathered(per_rank: list, manifest: dict, axes: dict) -> list:
-    """Whole leaves from two ranks' (path, block) lists, placed as the
+    """Whole leaves from the ranks' (path, block) lists, placed as the
     manifest's leaves are."""
     from tf_operator_tpu_torch.parallel.sharding import gather_shards
 
@@ -422,7 +463,7 @@ def test_same_mesh_resume_is_bitwise(gang, name):
     axes = CASES[name.rsplit("_", 1)[0]][0]
     d = gang.conf["dirs"]["fsdp2_peer" if name == "fsdp2_async" else name]
     m = _manifest(d, 3)
-    assert m["world_size"] == 2 and m["mesh"]["shape"] == list(axes.values())
+    assert m["world_size"] == _n(axes) and m["mesh"]["shape"] == list(axes.values())
     files = sorted(b["file"] for rec in m["leaves"] for b in rec["blocks"])
     assert files == sorted(n for n in os.listdir(Path(d) / "step_3") if n != "manifest.json")
     written = sum(x["report"]["saves"][-1]["blocks"] for x in second)
@@ -547,6 +588,35 @@ def test_recut_fsdp2_to_tp2(world1, gang):
     assert all(r["restore"]["recut"] for r in res)
     m = _manifest(gang.conf["dirs"]["tp2_async"], 2)
     _equal(_gathered([r["restored"] for r in res], m, {"tp": 2}), gathered, "fsdp 2 -> tp 2")
+
+
+def test_recut_pp2tp2_to_world1(gang):
+    """One process re-cuts the pp 2 x tp 2 step (each rank its stage's
+    layers, their tp blocks): every leaf the gathered state, bitwise."""
+    from tf_operator_tpu_torch.train import checkpoint as ck
+
+    first = gang.result("a", "pp2tp2_async")
+    d = gang.conf["dirs"]["pp2tp2_async"]
+    m = _manifest(d, 2)
+    assert any(rec["placement"][:1] == ["pp"] for rec in m["leaves"])
+    mgr = ck.CheckpointManager(d, readonly=True, world_size=1, allow_world_resize=True)
+    state = mgr.restore(_lm_trainer(None).state_template(), step=2, device="cpu")
+    assert mgr.last_restore["recut"]
+    _equal(_wire(state), _gathered([r["saved"] for r in first], m, {"pp": 2, "tp": 2}),
+           "pp 2 x tp 2 -> world 1")
+
+
+def test_cadence_directive_reaches_every_rank(gang):
+    """The chief's directive (every 5 -> every 2, polled at step 2) takes
+    effect on both ranks at the same step: each saves at 4, 6 and 7, every
+    save commits, and the chief alone acks, once."""
+    res = gang.result("b", "cadence")
+    for rank, r in enumerate(res):
+        assert r["saves"] == [4, 6, 7] and r["every"] == 2, r
+        assert r["acks"] == ([(1, 2)] if rank == 0 else []), r
+    assert res[0]["steps"] == [4, 6, 7]
+    d = Path(gang.conf["dirs"]["cadence"])
+    assert all((d / f"step_{s}" / "manifest.json").exists() for s in (4, 6, 7))
 
 
 def test_torn_save_is_never_a_step_and_is_swept(gang):

@@ -13,7 +13,9 @@ two-process gangs over gloo: the port's smoke job as
 ``{"fsdp": 2}``, and a tiny LM under ``{"dp": 2}`` whose rank 1 dies at
 step 3 of its first incarnation, after its gang's step-2 checkpoint:
 rank 0 sees the lost peer and exits 138, the controller restarts the
-gang, which resumes warm from step 2 and trains to the end. All are
+gang, which resumes warm from step 2 and trains to the end; and a tiny
+LM pipelined under ``{"pp": 2}`` (1f1b, 2 microbatches) that
+checkpoints every 2 steps. All are
 submitted at once to one operator (a module fixture); each test waits
 for its own.
 """
@@ -91,6 +93,8 @@ GANGS = {
                           {**GANG_LM, "steps": 6, "fail_at_step": 3, "fail_rank": 1,
                            "checkpoint_every": 2},
                           {"dp": 2}),
+    "port-lm-pp": ("tf_operator_tpu_torch.workloads.lm:main",
+                   {**GANG_LM, "pp_microbatches": 2, "checkpoint_every": 2}, {"pp": 2}),
 }
 
 
@@ -160,6 +164,7 @@ def operator(tmp_path_factory):
             job.spec.workload = dict(wl)
             if "fail_at_step" in wl:
                 job.spec.workload["fail_marker"] = str(tmp / f"{name}-died-once")
+            if "checkpoint_every" in wl:
                 job.spec.workload["checkpoint_dir"] = str(tmp / f"{name}-ckpt")
             job.spec.topology.mesh_axes = dict(axes)
             store.create(job)
@@ -282,6 +287,30 @@ def test_port_two_process_fsdp_lm_succeeds(operator):
     assert [x["rank"] for x in lines] == [0, 1]
     assert lines[0]["losses"] == lines[1]["losses"] and len(lines[0]["losses"]) == 4
     assert all(np.isfinite(lines[0]["losses"])) and lines[0]["collective_calls"] > 0
+
+
+def test_port_pipelined_lm_gang_succeeds(operator):
+    """A tiny LM pipelined over {"pp": 2} (one layer a stage): both ranks
+    log the same losses and the pipeline's figures (1f1b, 2 microbatches,
+    2·(2 + 2 - 1) ticks a step), and its checkpoints commit (steps 2 and
+    the final 4), each rank writing its stage's layer blocks."""
+    store, logs = operator[:2]
+    tmp = operator[4]
+    st, text = _succeeded(store, "port-lm-pp", logs)
+    assert st.restart_count == 0
+    assert "lm done: preset=tiny" in text and "mesh={'pp': 2}" in text
+    rank1 = (logs / "default_port-lm-pp-worker-1.log").read_text()
+    lines = [json.loads(t.split("lm rank: ", 1)[1].splitlines()[0]) for t in (text, rank1)]
+    assert lines[0]["losses"] == lines[1]["losses"] and all(np.isfinite(lines[0]["losses"]))
+    for x in lines:
+        assert x["pipeline"] == {"schedule": "1f1b", "microbatches": 2, "chunks": 1,
+                                 "stages": 2, "ticks_per_step": 6,
+                                 "bubble_fraction": 1 / 3}, x["pipeline"]
+    ckpt = tmp / "port-lm-pp-ckpt"
+    assert sorted(n for n in os.listdir(ckpt) if n.startswith("step_")) == ["step_2", "step_4"]
+    manifest = json.loads((ckpt / "step_4" / "manifest.json").read_text())
+    wq = next(r for r in manifest["leaves"] if r["path"] == "['params']['layers']['wq']")
+    assert wq["placement"][0] == "pp" and sorted(b["rank"] for b in wq["blocks"]) == [0, 1]
 
 
 def test_port_gang_survives_a_lost_peer(operator):

@@ -100,21 +100,23 @@ def test_flash_forward_runs_per_remat_mode(monkeypatch, remat, fwd_per_layer):
 def test_unported_modes_raise():
     p = tt.init_transformer(tt.preset("tiny"), torch.Generator().manual_seed(0), "cpu")
     tok = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="M13"):
-        tt.lm_loss(p, tok, tt.preset("tiny", pp_microbatches=2))
-    # without a cp axis ring and ulysses attend densely, as JAX's do
+    # without a cp axis ring and ulysses attend densely, as JAX's do; without
+    # a pp axis pp_microbatches changes nothing, as in JAX
     dense = tt.lm_loss(p, tok, tt.preset("tiny"))
     for impl in ("ring", "ulysses"):
         assert float(tt.lm_loss(p, tok, tt.preset("tiny", attn_impl=impl))) == float(dense)
-    # under a mesh: a pp axis (M13) and MoE under a cp axis (Queue 1 item
-    # 12); no process group is needed to build a mesh, and the check comes
-    # before any collective
+    assert float(tt.lm_loss(p, tok, tt.preset("tiny", pp_microbatches=2))) == float(dense)
+    # under a mesh: a pp axis without pp_microbatches, pp with cp, and MoE
+    # under a cp axis (Queue 1 item 12); no process group is needed to
+    # build a mesh, and the check comes before any collective
     from tf_operator_tpu_torch.parallel.mesh import build_mesh
 
-    for axes, cfg, match in (({"pp": 2}, tt.preset("tiny"), "M13"),
+    for axes, cfg, match in (({"pp": 2}, tt.preset("tiny"), "without pp_microbatches"),
+                             ({"pp": 2, "cp": 2}, tt.preset("tiny", pp_microbatches=2),
+                              "cp inside a pipeline stage"),
                              ({"cp": 2}, tt.preset("tiny-moe"), "item 12")):
         with pytest.raises(NotImplementedError, match=match):
-            tt.lm_loss(p, tok, cfg, mesh=build_mesh(axes, ranks=range(2)))
+            tt.lm_loss(p, tok, cfg, mesh=build_mesh(axes, ranks=range(2 * len(axes))))
     with pytest.raises(ValueError, match="unknown remat mode"):
         tt.lm_loss(p, tok, tt.preset("tiny", remat="save_everything"))
     with pytest.raises(ValueError, match="unknown activation"):

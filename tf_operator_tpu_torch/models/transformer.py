@@ -39,9 +39,19 @@ with its experts (split over ep, gathered over fsdp and tp), its router
 from ``w_router`` gathered over fsdp and ep, and its router losses from
 the global stats.
 
-Not ported yet, and raising where asked for: pipeline parallelism and a
-pp axis (ROADMAP M13), MoE together with a cp axis of more than one
-(ROADMAP Queue 1 item 12).
+Under a pp axis with ``pp_microbatches`` the layer stack runs as a
+pipeline (``transformer_hidden_pp``, parallel/pipeline.py): each pp rank
+runs its stage's layers (its contiguous block of the stacked leaves, or,
+interleaved, the chunks it gets by one exchange over pp a step), gathered
+over fsdp once a step; tp inside a stage is the Megatron split as
+without pp, and MoE runs on the microbatch's rows, its experts
+replicated in the stage or split over ep, ep then a batch axis of the
+pipeline.
+
+Not ported yet, and raising where asked for: MoE together with a cp axis
+of more than one (ROADMAP Queue 1 item 12); a pp axis together with a cp
+axis of more than one, and a pp axis without ``pp_microbatches`` (both
+ROADMAP Queue 3).
 
 Declared differences: the masked-LM loss without an explicit ``mask``
 uses a fixed mask drawn with ``np.random.RandomState(0)`` (JAX: the
@@ -58,6 +68,7 @@ Init draws from an explicit ``torch.Generator``; it cannot reproduce
 from __future__ import annotations
 
 import functools
+import importlib
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
@@ -450,17 +461,48 @@ def _moe_mlp(h, lp, cfg: TransformerConfig):
     flat = h.reshape(b * t, d)
     gate_logits = flat @ lp["w_router"].to(h.dtype)
     experts = {k: lp[k] for k in ("w_gate", "w_up", "w_down")}
-    out, stats = moe_apply(
-        flat, gate_logits, experts, _swiglu_experts, mesh, axis_name=cfg.ep_axis,
-        capacity_factor=cfg.capacity_factor, dropped="zero", k_top=cfg.moe_top_k,
-        return_stats=True, dispatch_impl=cfg.moe_dispatch, ragged_expert_fn=ragged_swiglu)
+    in_stage = isinstance(lp, _StageLayer)
+    if in_stage:
+        out, stats = _moe_in_stage(flat, gate_logits, experts, cfg, spmd)
+    else:
+        out, stats = moe_apply(
+            flat, gate_logits, experts, _swiglu_experts, mesh, axis_name=cfg.ep_axis,
+            capacity_factor=cfg.capacity_factor, dropped="zero", k_top=cfg.moe_top_k,
+            return_stats=True, dispatch_impl=cfg.moe_dispatch, ragged_expert_fn=ragged_swiglu)
     lb_loss = cfg.n_experts * (stats["expert_load"] * stats["mean_gate"]).sum()
     z_loss = torch.logsumexp(gate_logits.float(), dim=-1).square().mean()
-    if spmd is not None:  # the mean over the global tokens
+    if spmd is not None and not in_stage:  # the mean over the global tokens
         z_loss = coll.all_reduce_mean(z_loss, mesh, spmd.plan.data_axes)
     aux = {"lb_loss": lb_loss, "z_loss": z_loss,
            "expert_load": stats["expert_load"], "drop_frac": stats["drop_frac"]}
     return out.reshape(b, t, d), aux
+
+
+def _moe_in_stage(flat, gate_logits, experts, cfg: TransformerConfig, spmd: "_Spmd"):
+    """The MoE MLP in a pipeline stage, on the microbatch's rows: without an
+    ep axis moe_apply on one device (the experts replicated in the stage,
+    the capacity from these rows); with one the per-device dispatch on the
+    ep axis (gmm padding-free, every other dispatch as sort, as the JAX
+    pipeline runs them), its rows routed to their experts' owners and the
+    stats averaged over ep alone. (out, stats)."""
+    from tf_operator_tpu_torch.parallel import moe
+
+    if spmd.plan.size(cfg.ep_axis) == 1:
+        return moe.moe_apply(
+            flat, gate_logits, experts, _swiglu_experts, None,
+            capacity_factor=cfg.capacity_factor, dropped="zero", k_top=cfg.moe_top_k,
+            return_stats=True, dispatch_impl=cfg.moe_dispatch,
+            ragged_expert_fn=moe.ragged_swiglu)
+    mesh = spmd.mesh
+    if cfg.moe_dispatch == "gmm":
+        out, stats = moe._moe_local_gmm(flat, gate_logits, experts, mesh, cfg.ep_axis,
+                                        cfg.moe_top_k, moe._block_rows())
+    else:
+        capacity = moe.expert_capacity(cfg.capacity_factor, cfg.moe_top_k, flat.shape[0],
+                                       cfg.n_experts)
+        out, stats = moe._moe_local(flat, gate_logits, experts, _swiglu_experts, mesh,
+                                    cfg.ep_axis, capacity, "zero", cfg.moe_top_k, "sort")
+    return out, moe._global_stats(stats, mesh, (cfg.ep_axis,))
 
 
 _EXPERT_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
@@ -490,6 +532,18 @@ class _ShardedLayer(dict):
 
     def fresh(self) -> "_ShardedLayer":
         return _ShardedLayer(self.local, self.spmd)
+
+
+class _StageLayer(_ShardedLayer):
+    """One layer's params inside a pipeline stage: the stage's leaves were
+    gathered over fsdp once for the step, so a name is the leaf itself."""
+
+    def __missing__(self, name):
+        self[name] = self.local[name]
+        return self[name]
+
+    def fresh(self) -> "_StageLayer":
+        return _StageLayer(self.local, self.spmd)
 
 
 def _fresh(lp):
@@ -725,14 +779,20 @@ def _remat_wrap(cfg: TransformerConfig):
 
 def check_supported(cfg: TransformerConfig, mesh) -> None:
     """Raise for what the port does not run yet, naming its item."""
-    if cfg.pp_microbatches:
-        raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP M13)")
     if mesh is None:
         return
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-    if sizes.get("pp", 1) > 1:
+    sizes = {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+    pp = sizes.get(cfg.pp_axis, 1)
+    if pp > 1 and not cfg.pp_microbatches:
         raise NotImplementedError(
-            f"a pp axis of {sizes['pp']}: pipeline parallelism is not ported yet (ROADMAP M13)")
+            f"a pp axis of {pp} without pp_microbatches: the port runs a pp axis only as a "
+            "pipeline (the JAX package's GSPMD placement of the layer stack without one is "
+            "not ported; ROADMAP Queue 3)")
+    if pp > 1 and sizes.get(cfg.cp_axis, 1) > 1:
+        raise NotImplementedError(
+            f"a pp axis of {pp} with a cp axis of {sizes[cfg.cp_axis]}: the JAX pipeline "
+            "splits no sequence, so every cp rank would run its stage on the whole sequence; "
+            "cp inside a pipeline stage is not ported (ROADMAP Queue 3)")
     if cfg.n_experts and sizes.get(cfg.cp_axis, 1) > 1:
         raise NotImplementedError(
             f"MoE under a cp axis of {sizes[cfg.cp_axis]} is not ported yet (ROADMAP Queue 1 "
@@ -788,7 +848,103 @@ def transformer_hidden(params, tokens, cfg: TransformerConfig, mesh=None,
     spmd = _spmd(cfg, mesh)
     if embed is None:
         embed = params["embed"] if spmd is None else spmd.embed(params)
+    if _use_pipeline(cfg, spmd):
+        h, aux = transformer_hidden_pp(params, embed, tokens, cfg, spmd)
+        return (h, aux) if with_aux else h
     return _hidden(params, embed, tokens, cfg, spmd, with_aux)
+
+
+def _use_pipeline(cfg: TransformerConfig, spmd: Optional[_Spmd]) -> bool:
+    return bool(cfg.pp_microbatches and spmd is not None and spmd.plan.size(cfg.pp_axis) > 1)
+
+
+def _stage_leaves(params, cfg: TransformerConfig, spmd: _Spmd) -> dict:
+    """This rank's stage: each stacked layer leaf's pp block (interleaved:
+    the chunks it runs, by one exchange over pp), gathered over fsdp (and,
+    under ep, the router over ep) once for the step, [v, per, ...]. The
+    experts stay split over ep; the tp blocks stay; the router's gradient
+    is reduce-scattered over ep, whose ranks route their own rows."""
+    from tf_operator_tpu_torch.parallel.pipeline import interleave_chunks
+
+    v = cfg.pp_chunks
+    out = {}
+    for name, leaf in params["layers"].items():
+        leaf = interleave_chunks(leaf, spmd.mesh, cfg.pp_axis, v)
+        keep = (cfg.pp_axis, cfg.ep_axis) if spmd.moe and name in _EXPERT_LEAVES else \
+            (cfg.pp_axis, "tp")
+        leaf = spmd.plan.gather(leaf, spmd.plan.placements["layers"][name], keep=keep)
+        out[name] = leaf.reshape((v, leaf.shape[0] // v) + tuple(leaf.shape[1:]))
+    return out
+
+
+def transformer_hidden_pp(params, embed, tokens, cfg: TransformerConfig, spmd: _Spmd):
+    """The layer stack as a pipeline over the pp axis (the JAX package's
+    ``transformer_hidden_pp``): n_layers / (pp · pp_chunks) contiguous
+    layers a virtual stage through ``pipeline.pipeline_apply`` under
+    cfg.pp_schedule, each stage a loop over its layers with the same
+    remat-wrapped layer as ``_hidden``, so every remat policy holds in a
+    stage. Composes with dp and fsdp (pipeline data axes), tp inside a
+    stage (the Megatron split, n_heads, n_kv_heads and d_ff divisible by
+    tp) and ep inside a stage (ep a data axis too: each ep rank pipelines
+    its own rows and the MoE layers exchange them with the experts'
+    owners). The MoE router losses ride the pipeline's aux channel, summed
+    per (layer, microbatch) and normalised back to means here, the
+    load-balance fractions per microbatch; expert_load and drop_frac are
+    not carried (None). MoE with tp in a stage raises, as in JAX.
+    Returns (final-norm h, aux or None)."""
+    from tf_operator_tpu_torch.parallel.pipeline import pipeline_apply
+    from tf_operator_tpu_torch.parallel.sharding import split_axes
+
+    tp = spmd.tp
+    if cfg.n_experts and tp > 1:
+        raise NotImplementedError(
+            "MoE + tp-within-stage is not supported (the expert MLP has "
+            "no tensor-parallel split); use pp x ep x dp for MoE pipelines"
+        )
+    ep = spmd.plan.size(cfg.ep_axis)
+    if cfg.n_experts and ep > 1 and cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts not divisible by {cfg.ep_axis}={ep}")
+    n_virtual = spmd.plan.size(cfg.pp_axis) * cfg.pp_chunks
+    if cfg.n_layers % n_virtual:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by pp*pp_chunks={n_virtual}")
+    if tp > 1:
+        for nm, val in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                        ("d_ff", cfg.d_ff)):
+            if val % tp:
+                raise ValueError(f"{nm}={val} not divisible by tp={tp}")
+    layer_fn = _remat_wrap(cfg)
+    if cfg.remat not in (False, None, "none"):
+        # torch.utils.checkpoint imports torch._dynamo at its first call (~3 s
+        # on an idle host, ~10 s on a busy one): import it here, so every
+        # stage pays it before the first tick, at once, and not stage after
+        # stage inside the pipeline
+        importlib.import_module("torch._dynamo")
+    moe = bool(cfg.n_experts)
+    per = cfg.n_layers // n_virtual
+
+    def stage_fn(chunk, xb):
+        layers = {name: leaf.unbind(0) for name, leaf in chunk.items()}
+        acc = torch.zeros(2, dtype=torch.float32, device=xb.device)
+        for j in range(per):
+            xb, aux = layer_fn(xb, _StageLayer({n: ls[j] for n, ls in layers.items()}, spmd))
+            if moe:
+                acc = acc + torch.stack([aux["lb_loss"], aux["z_loss"]]).float()
+        return (xb, acc) if moe else xb
+
+    x = embed[tokens].to(cfg.dtype)
+    res = pipeline_apply(_stage_leaves(params, cfg, spmd), x, stage_fn, spmd.mesh,
+                         cfg.pp_microbatches, cfg.pp_axis,
+                         batch_axes=split_axes(spmd.plan.batch_part),
+                         schedule=cfg.pp_schedule, aux_size=2 if moe else 0,
+                         n_chunks=cfg.pp_chunks)
+    final_norm = spmd.final_norm(params)
+    if not moe:
+        return _rms_norm(res, final_norm, cfg.norm_eps), None
+    h, sums = res
+    denom = cfg.n_layers * cfg.pp_microbatches
+    return _rms_norm(h, final_norm, cfg.norm_eps), {
+        "lb_loss": sums[0] / denom, "z_loss": sums[1] / denom,
+        "expert_load": None, "drop_frac": None}
 
 
 def _hidden(params, embed, tokens, cfg: TransformerConfig, spmd: Optional[_Spmd],
@@ -916,11 +1072,12 @@ def lm_loss_and_metrics(params, tokens, cfg: TransformerConfig, mesh=None, *,
     if aux is None:
         return ce, metrics
     total = ce + cfg.moe_aux_weight * aux["lb_loss"] + cfg.moe_zloss_weight * aux["z_loss"]
-    load = aux["expert_load"]  # [L, E]
-    p = load / load.sum(dim=-1, keepdim=True).clamp(min=1e-9)
-    entropy = -(p * p.clamp(min=1e-9).log()).sum(dim=-1)  # [L]
-    metrics.update(moe_lb_loss=aux["lb_loss"], moe_z_loss=aux["z_loss"],
-                   moe_expert_entropy=entropy.mean(), moe_drop_frac=aux["drop_frac"].mean())
+    metrics.update(moe_lb_loss=aux["lb_loss"], moe_z_loss=aux["z_loss"])
+    load = aux["expert_load"]  # [L, E]; None under a pipeline (scalar losses only)
+    if load is not None:
+        p = load / load.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        entropy = -(p * p.clamp(min=1e-9).log()).sum(dim=-1)  # [L]
+        metrics.update(moe_expert_entropy=entropy.mean(), moe_drop_frac=aux["drop_frac"].mean())
     return total, metrics
 
 

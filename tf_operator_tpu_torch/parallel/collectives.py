@@ -155,11 +155,13 @@ class _AllReduce(torch.autograd.Function):
         return (y * ctx.scale if ctx.scale != 1 else y), None, None, None, None
 
 
-def all_reduce_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """psum over ``axes`` (a name or a tuple of names)."""
+def all_reduce_sum(x: torch.Tensor, mesh, axes, replicated: Sequence[str] = ()) -> torch.Tensor:
+    """psum over ``axes`` (a name or a tuple of names). The backward sums
+    the cotangent over the axes but those in ``replicated`` (axes whose
+    ranks hold one copy of the loss: pp under a pipeline)."""
     if not _active(mesh, axes):
         return x
-    return _AllReduce.apply(x, mesh, axes, 1)
+    return _AllReduce.apply(x, mesh, axes, 1, tuple(replicated))
 
 
 def all_reduce_mean(x: torch.Tensor, mesh, axes, replicated: Sequence[str] = ()) -> torch.Tensor:
@@ -261,6 +263,41 @@ def ring_shift(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor
     if axis_size(mesh, axis) == 1 or shift % axis_size(mesh, axis) == 0:
         return x
     return _RingShift.apply(x, mesh, axis, shift)
+
+
+def ring_shift_no_grad(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """ring_shift outside autograd (the pipeline's tick shifts, whose
+    transposes the pipeline's backward makes itself)."""
+    if axis_size(mesh, axis) == 1 or shift % axis_size(mesh, axis) == 0:
+        return x
+    with torch.no_grad():
+        return _shift(x, mesh, axis, shift)
+
+
+def broadcast_no_grad(x: torch.Tensor, mesh, axis: str, index: int) -> torch.Tensor:
+    """The tensor of ``axis`` index ``index`` on every rank of the axis,
+    outside autograd (a new tensor)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    coord = [int(c) for c in mesh.get_coordinate()]
+    coord[mesh.mesh_dim_names.index(axis)] = index
+    src = int(mesh.mesh.numpy()[tuple(coord)])
+    y = x.detach().contiguous().clone()
+    _call("broadcast", lambda o, i, g: dist.broadcast(i, src, group=g), y, y,
+          mesh.get_group(axis))
+    return y
+
+
+def all_to_all_uneven(out: torch.Tensor, inp: torch.Tensor, out_splits, in_splits, mesh,
+                      axis: str) -> None:
+    """all_to_all_single over ``axis`` with per-rank row counts (dim 0),
+    into ``out``, outside autograd."""
+    global all_to_all_bytes
+    with torch.no_grad():
+        _call("all_to_all_uneven", lambda o, i, g: dist.all_to_all_single(
+            o, i, list(out_splits), list(in_splits), group=g), out, inp, mesh.get_group(axis))
+    all_to_all_bytes += inp.numel() * inp.element_size()
 
 
 class _TpEnter(torch.autograd.Function):

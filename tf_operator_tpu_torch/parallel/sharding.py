@@ -237,12 +237,14 @@ class MeshPlan:
     (its block of the leading dim over the batch axes, dp then fsdp, and
     of the sequence dim over cp). The loss axes are the batch axes and cp:
     a loss's numerator and denominator are summed over them, and so are
-    the gradients of the leaves not split on them."""
+    the gradients of the leaves not split on them. On a mesh with pp and
+    ep both above 1 (the pipeline with ep inside a stage) ep is a batch
+    axis too, the minor one: every ep rank then routes rows of its own.
+    pp is never a loss axis: every pp rank holds the same copy of the
+    loss."""
 
     def __init__(self, mesh, logical_axes: Any = None,
                  rules: ShardingRules = DEFAULT_RULES, rank: Optional[int] = None) -> None:
-        from tf_operator_tpu_torch.parallel.mesh import DATA_AXES
-
         self.mesh = mesh
         self.rules = rules
         self.rank = _rank() if rank is None else int(rank)
@@ -252,7 +254,10 @@ class MeshPlan:
         # the data axes a batch is split over, and the ones of size > 1
         # whose gradients are summed
         self.batch_part = batch_sharding(mesh, rules)[0]
-        self.data_axes = tuple(a for a in DATA_AXES if self.sizes.get(a, 1) > 1)
+        if self.size(AXIS_PIPELINE) > 1 and self.size(AXIS_EXPERT) > 1:
+            # ep inside a pipeline stage: each ep rank routes its own rows
+            self.batch_part = split_axes(self.batch_part) + (AXIS_EXPERT,)
+        self.data_axes = tuple(a for a in split_axes(self.batch_part) if self.size(a) > 1)
         self.data_size, self.data_index = _blocks(mesh, self.batch_part, self.coords)
         self.seq_part = rules.placement(mesh, ["seq"])[0]
         self.seq_size, self.seq_index = _blocks(mesh, self.seq_part, self.coords)

@@ -1247,30 +1247,39 @@ class WorkloadCheckpointer:
         """Apply a pending checkpoint-cadence directive ({"epoch",
         "checkpoint_every"} from ``ctx.poll_checkpoint_cadence_directive``)
         at a step boundary, each epoch once, and ack it
-        (``ctx.ack_checkpoint_cadence``). The chief (process 0) alone
-        polls, at most once per ``cadence_poll_s``. True when an epoch was
-        applied."""
-        if self.ctx is None or getattr(self.ctx, "process_id", 0) != 0:
-            return False
+        (``ctx.ack_checkpoint_cadence``). The chief (process 0, or a gang's
+        chief) alone polls, at most once per ``cadence_poll_s``. Under a
+        gang every rank calls this at the same boundaries (``run_loop``
+        does, after each chunk's save decision) and the chief's (epoch,
+        every) reaches all of them through one small collective on the
+        main thread (``CheckpointManager.from_chief``), so the new cadence
+        takes effect on every rank at the same step and their saves stay
+        one save. True when an epoch was applied."""
         poll = getattr(self.ctx, "poll_checkpoint_cadence_directive", None)
         if poll is None:
             return False
-        now = time.time()
-        if now - self._cadence_last_poll < self._cadence_poll_s:
+        gang = self.manager is not None and self.manager.gang_size > 1
+        chief = self.manager.is_chief if gang else getattr(self.ctx, "process_id", 0) == 0
+        if not (chief or gang):
             return False
-        self._cadence_last_poll = now
-        directive = poll() or {}
-        epoch = int(directive.get("epoch", 0))
+        epoch, every = 0, 0
+        now = time.time()
+        if chief and now - self._cadence_last_poll >= self._cadence_poll_s:
+            self._cadence_last_poll = now
+            directive = poll() or {}
+            epoch = int(directive.get("epoch", 0))
+            every = int(directive.get("checkpoint_every", 0))
+        if gang:
+            epoch, every = self.manager.from_chief([epoch, every])
         if epoch <= self._cadence_epoch:
             return False
         self._cadence_epoch = epoch
-        every = int(directive.get("checkpoint_every", 0))
         if every > 0 and every != self.every:
             log.info("checkpoint cadence directive epoch %d: every %d -> %d steps",
                      epoch, self.every, every)
             self.every = every
         ack = getattr(self.ctx, "ack_checkpoint_cadence", None)
-        if ack is not None:
+        if chief and ack is not None:
             ack(epoch, self._step if step is None else int(step))
         return True
 

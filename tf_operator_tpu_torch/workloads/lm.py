@@ -4,8 +4,9 @@ Port of ``tf_operator_tpu/workloads/lm.py``: trains a transformer preset
 (dense or MoE under any ``moe_dispatch``, causal LM or, for ``causal:
 false`` presets such as bert-base, the masked LM with its fixed mask)
 with the Trainer, on one card or on each rank of the job's mesh (dp,
-fsdp, ep, cp and tp, hybrid included: ``main`` joins the gang, builds the
-mesh and hands it to the trainer and the model), on one fixed batch, synthetic
+fsdp, ep, cp, tp and pp with ``pp_microbatches``, hybrid included: ``main``
+joins the gang, builds the mesh and hands it to the trainer and the
+model), on one fixed batch, synthetic
 batches streamed through the DeviceLoader, or a tokenized corpus memmap,
 and logs tokens/s and MFU, counted on the
 params a token touches (``n_active_params``, so top-1 MoE counts one
@@ -23,9 +24,10 @@ checkpointer's optional ones); a lost peer exits 138
 logs the ``lm done`` line, with the mesh, and tokens/s and MFU count the
 global batch's tokens once; every rank logs an ``lm rank`` line (its
 losses and gradient norms, the digest of its replicated leaves, kernel
-launches, peak memory, host seconds in collectives, bytes staged through
-the host and sent through all_to_all, and under ep with gmm the occupied
-share of its received blocks, and its checkpoint figures: save stalls,
+launches (in all and a step), peak memory, host seconds in collectives,
+bytes staged through the host and sent through all_to_all, under ep with
+gmm the occupied share of its received blocks, under pp the pipeline's
+schedule, ticks a step and bubble fraction, and its checkpoint figures: save stalls,
 blocks and bytes written, drain, commit and restore seconds). A job
 whose checkpoints already cover its budget returns at once; a restarted
 one resumes from its latest checkpoint (``resumed from checkpoint at
@@ -67,8 +69,13 @@ fault). Declared differences from the JAX workload:
   (``train/checkpoint.py``), each rank writing its blocks; the port's own
   key ``checkpoint_digests`` logs each written block's sha256 in the
   ``lm rank`` line's checkpoint figures.
+- Under pp with ep, ep is a data axis too: each ep rank reads rows of its
+  own (``MeshPlan``). Under pp an MoE model's router line carries the
+  scalar losses only, as JAX's does: the per-layer telemetry does not
+  ride the pipeline.
 - Not ported yet, and raising: ``checkpoint_backend: orbax`` (``auto``
-  means npy), a pp axis, MoE under a cp axis.
+  means npy), MoE under a cp axis, pp with cp, a pp axis without
+  ``pp_microbatches``.
 """
 
 from __future__ import annotations
@@ -272,11 +279,14 @@ def router_metrics(run: LMRun) -> Optional[dict]:
     drop fraction (the token choices past an expert's capacity under the
     sort and einsum dispatches; 0 under ragged and gmm) and the unweighted
     router losses, as floats, of the global batch. None for a dense model.
-    One forward pass, under a mesh on every rank (it runs collectives)."""
+    One forward pass, under a mesh on every rank (it runs collectives).
+    Under a pipeline the router losses alone (no per-layer telemetry)."""
     if not run.cfg.n_experts:
         return None
     with torch.no_grad():
         _, m = lm_loss_and_metrics(run.state.params, run.tokens, run.cfg, mesh=run.mesh)
+    if "moe_expert_entropy" not in m:
+        return {"lb_loss": float(m["moe_lb_loss"]), "z_loss": float(m["moe_z_loss"])}
     return {"expert_entropy": float(m["moe_expert_entropy"]),
             "uniform": math.log(run.cfg.n_experts), "drop_frac": float(m["moe_drop_frac"]),
             "lb_loss": float(m["moe_lb_loss"]), "z_loss": float(m["moe_z_loss"])}
@@ -299,6 +309,7 @@ def rank_line(run: LMRun, rank: int, ckpt: Optional[WorkloadCheckpointer] = None
     it staged through the host (gloo on the card), and with ``ckpt`` its
     checkpoint figures (``WorkloadCheckpointer.report``)."""
     on_card = run.device.type == "cuda"
+    n_steps = max(1, len(run.losses))
     launches = {"flash_fwd_launches": fa.flash_fwd_launches,
                 "flash_bwd_dq_launches": fa.flash_bwd_dq_launches,
                 "flash_bwd_dkv_launches": fa.flash_bwd_dkv_launches}
@@ -309,12 +320,30 @@ def rank_line(run: LMRun, rank: int, ckpt: Optional[WorkloadCheckpointer] = None
     return {"rank": rank, "losses": run.losses, "grad_norms": run.grad_norms,
             "replicated_sha256": replicated_digest(run),
             "step_ms": None if run.step_s is None else run.step_s * 1e3,
-            "launches": launches, "flash_fwd_heads": fa.flash_fwd_heads,
+            "launches": launches,
+            "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+            "flash_fwd_heads": fa.flash_fwd_heads, "pipeline": pipeline_figures(run),
             "peak_gb": torch.cuda.max_memory_allocated(run.device) / 1e9 if on_card else None,
             "collective_s": coll.collective_s, "collective_calls": coll.collective_calls,
             "staged_bytes": coll.staged_bytes, "all_to_all_bytes": coll.all_to_all_bytes,
             "received_blocks_occupied": moe.received_blocks_occupied(),
             "checkpoint": None if ckpt is None else ckpt.report()}
+
+
+def pipeline_figures(run: LMRun) -> Optional[dict]:
+    """Under a pipelined mesh: the schedule, microbatches, chunks and
+    stages, the ticks a step (forward and backward) and the bubble
+    fraction; None otherwise."""
+    from tf_operator_tpu_torch.parallel.pipeline import bubble_fraction, n_ticks
+
+    cfg = run.cfg
+    stages = coll.axis_size(run.mesh, cfg.pp_axis)
+    if stages == 1 or not cfg.pp_microbatches:
+        return None
+    m, v = cfg.pp_microbatches, cfg.pp_chunks
+    return {"schedule": cfg.pp_schedule, "microbatches": m, "chunks": v, "stages": stages,
+            "ticks_per_step": 2 * n_ticks(stages, m, v),
+            "bubble_fraction": bubble_fraction(stages, m, v)}
 
 
 @rdv.retry_on_peer_loss
@@ -364,7 +393,11 @@ def main(ctx) -> None:
 
 def _log_done(run: LMRun, wl: dict, router: Optional[dict]) -> None:
     preset = wl.get("preset", "tiny")
-    if router is not None:
+    if router is not None and "expert_entropy" not in router:
+        # the pipeline carries the scalar router losses only
+        log.info("moe router (pp — scalar losses only): lb_loss=%.3f z_loss=%.4f",
+                 router["lb_loss"], router["z_loss"])
+    elif router is not None:
         # collapsed routing (entropy far below ln E) is a silent quality bug:
         # surface it where operators look first
         log.info("moe router: expert_entropy=%.3f (uniform=%.3f) drop_frac=%.3f "
