@@ -78,16 +78,29 @@ Training path:
     its manifest: no step becomes discoverable, and the next manager
     sweeps the orphan.
 12b. ``operator_resume``: the north-star job
-    (``examples/gqa_2048_northstar_h100.json``: steps 10, a checkpoint
+    (``examples/gqa_2048_northstar_h100.json``: steps 7, a checkpoint
     every 4 kept one deep, a retryable failure at step 6) launched with the
     operator's ``TPUJOB_*`` environment through the real harness
     (``python -m tf_operator_tpu.rendezvous.harness``, a subprocess): the
     first incarnation exits 138, the relaunch (the controller's gang
     restart) logs ``resumed from checkpoint at step 4``, runs the flash
-    kernels exactly 2·L / L / L times for each of its 7 steps, ends at step
-    11 and exits 0; its ``lm done`` line gives step time, tokens/s and MFU,
-    and its final loss is held to an uninterrupted run of the same spec,
-    which runs beside the two incarnations.
+    kernels exactly 2·L / L / L times for each of its 4 steps, ends at step
+    8 and exits 0; its ``lm done`` line gives step time, tokens/s and MFU,
+    and its final loss is held to the uninterrupted run of the same job:
+    phase 9's loss at step 8 (the same workload, seed and batch).
+12c. ``elastic_resize``: an elastic job (``workloads/elastic.py``, the
+    device-state mode: the reshard model's params and momentum on the
+    card) of three members through the harness, the reconciler played by
+    a process of its own hosting the operator's store and API server:
+    worker 2 SIGKILLed after the first committed checkpoint, the shrink
+    directive, the chief's barrier, worker 2 relaunched with
+    ``TPUJOB_RESIZE_EPOCH`` and the grow directive. Every member exits 0;
+    the eval digest is the uninterrupted order's, the params digest the
+    port's ``expected_params`` on the CPU; the chief's plan re-laid,
+    re-fetched and inited rows; the re-grown member restored from disk;
+    every member's rows lived on the card. ``expected_params`` on the card
+    gives the CPU's digest; through a planted fused multiply-add it must
+    not.
 12b'. The gang phases, each rank the real harness with the operator's
     ``TPUJOB_*`` environment of an N-process gang, two ranks sharing the
     card over gloo (``TPUJOB_DIST_BACKEND=gloo``; NCCL refuses two ranks
@@ -299,6 +312,10 @@ ResNet training path:
     test accuracy in [0, 1] and identical when rescored with eval_b 64 and
     100; images/s, idle share over 2 steps profiled on loader batches, and
     the stager's host ms a batch beside the step's.
+22b. ``mnist_train``: ``workloads/mnist.py`` in process: 30 synthetic
+    steps at hidden 128 and batch 256, the first 3 losses within 1e-4 of
+    the port's CPU run, the loss falling; then the idx path on a seeded
+    idx fixture (accuracy logged, not gated).
 23. ``resnet_parity``: ResNet-50 widths at one block a stage, 64^2, b 8:
     f32 loss, BN state and grads on the card against the CPU with
     ``fused_1x1`` on and off, and 3 bf16 steps with K8 against 3 with its
@@ -369,8 +386,11 @@ from tf_operator_tpu_torch.serve.engine import (
 )
 from tf_operator_tpu_torch.serve.kvcache import PagePool, SequencePages, pages_needed
 from tf_operator_tpu_torch.train import checkpoint as ckpt_mod
-from tf_operator_tpu_torch.train import trajectory
+from tf_operator_tpu_torch.train import data as data_mod
+from tf_operator_tpu_torch.train import reshard, trajectory
 from tf_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
+from tf_operator_tpu_torch.workloads import elastic as elastic_mod
+from tf_operator_tpu_torch.workloads import mnist as mnist_mod
 from tf_operator_tpu_torch.workloads.lm import fixed_tokens, lm_trainer, router_metrics, run_lm
 from tf_operator_tpu_torch.workloads.resnet import resnet_loss, run_resnet
 from tf_operator_tpu_torch.workloads.serve import _quantile, run_serve, synthesize_requests
@@ -390,16 +410,20 @@ REPO = Path(__file__).resolve().parent
 # The checkpoint phases write under the checkout, in a directory that
 # .gitignore lists, and each removes what it wrote.
 CKPT_ROOT = REPO / "build" / "ckpt_smoke"
-# operator_resume: the north-star job's H100 spec, its workload cut to 10
+# operator_resume: the north-star job's H100 spec, its workload cut to 7
 # steps with a checkpoint every 4 kept one deep, and a retryable failure at
-# step 6: the relaunch resumes from step 4 and ends at step 11 (10 steps
-# and the warmup).
+# step 6: the relaunch resumes from step 4 and ends at step 8 (7 steps
+# and the warmup; the final save is the periodic one, one 9.5 GB drain).
+# The uninterrupted run it is held to is the train phase's (TRAIN_WL is
+# the spec's workload; its loss at step 8), where it was a third process
+# of its own, 10 steps long, until the elastic and MNIST phases joined the
+# script.
 NORTHSTAR_SPEC = REPO / "examples" / "gqa_2048_northstar_h100.json"
-RESUME_OVERRIDES = {"steps": 10, "checkpoint_every": 4, "checkpoint_keep": 1,
+RESUME_OVERRIDES = {"steps": 7, "checkpoint_every": 4, "checkpoint_keep": 1,
                     "fail_at_step": 6}
-RESUME_FROM, RESUME_LAST = 4, 11
-# The resumed run's final loss against an uninterrupted run of the same
-# spec. The relaunch restores step 4's state bit for bit (ckpt_roundtrip
+RESUME_FROM, RESUME_LAST = 4, 8
+# The resumed run's final loss against the uninterrupted run of the same
+# job. The relaunch restores step 4's state bit for bit (ckpt_roundtrip
 # checks that at full size) and trains the same fixed batch through the
 # same kernels, so where every kernel of a step is deterministic the two
 # final losses are equal. What can part them is a sum whose order depends
@@ -2278,34 +2302,29 @@ def harness_result(text: str, phase: str) -> dict:
                          "flash_bwd_dkv_launches": int(dkv)}, "final_loss": float(final)}
 
 
-def phase_operator_resume(smi):
+def phase_operator_resume(smi, base_losses):
     """The north-star job as the operator runs it, through the real
     harness: the first incarnation dies retryably (138) at step 6, the
     relaunch (the controller's gang restart) resumes from step 4's
-    checkpoint and finishes the budget (step 11) through K1-K3; its final
-    loss is held to an uninterrupted run of the same spec, which runs
-    beside the two incarnations (its fault marker already exists)."""
+    checkpoint and finishes the budget (step 8) through K1-K3; its final
+    loss is held to the uninterrupted run of the same job, the train
+    phase's (``base_losses``: the spec's workload and TRAIN_WL agree on
+    every key that sets a value, checked here)."""
     spec = json.loads(NORTHSTAR_SPEC.read_text())
     cfg = preset_from_workload(spec["spec"]["workload"])
-    need = 4 * 12 * cfg.n_params() + (1 << 30)  # two step dirs a run: f32 params and moments
+    spec_wl = spec["spec"]["workload"]
+    same = {k: (spec_wl.get(k, default), TRAIN_WL[k]) for k, default in (
+        ("preset", None), ("batch_size", None), ("seq_len", None), ("attn", None),
+        ("remat", None), ("lr", 3e-4), ("data", "fixed"))}
+    check(all(a == b for a, b in same.values()) and len(base_losses) >= RESUME_LAST,
+          f"operator_resume: the spec's job is not the train phase's: {same}")
+    need = 2 * 12 * cfg.n_params() + (1 << 30)  # two step dirs: f32 params and moments
     d = ckpt_dir_with_room("operator_resume", need)
     marker = d / "died-once"
-    wl = {**spec["spec"]["workload"], **RESUME_OVERRIDES, "checkpoint_dir": str(d / "ckpt"),
+    wl = {**spec_wl, **RESUME_OVERRIDES, "checkpoint_dir": str(d / "ckpt"),
           "fail_marker": str(marker)}
-    # the same spec, uninterrupted: its marker exists before it starts
-    done_marker = d / "died-before"
-    done_marker.touch()
-    wl2 = {**wl, "checkpoint_dir": str(d / "ckpt2"), "fail_marker": str(done_marker)}
     torch.cuda.empty_cache()
-    log2 = d / "uninterrupted-worker-0.log"
-    uninterrupted = None
     try:
-        t3 = time.perf_counter()
-        with open(log2, "w") as log:
-            uninterrupted = subprocess.Popen(
-                [sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"],
-                env=harness_env(spec, wl2, d / "ckpt2"), cwd=REPO, stdout=log,
-                stderr=subprocess.STDOUT)
         log1 = d / "worker-0.log"
         log1.write_text("")
         rc1, s1 = run_harness(spec, wl, d / "ckpt", log1)
@@ -2327,28 +2346,22 @@ def phase_operator_resume(smi):
         want = {k: v * cfg.n_layers * steps_run for k, v in DENSE_PER_LAYER.items()}
         check(resumed["launches"] == want,
               f"operator_resume: launches {resumed['launches']} != {want}")
-        rc3 = uninterrupted.wait(timeout=max(1.0, 900 - (time.perf_counter() - t3)))
-        s3 = time.perf_counter() - t3
-        check(rc3 == 0, f"operator_resume: uninterrupted exit {rc3}:\n{log2.read_text()[-3000:]}")
-        full = harness_result(log2.read_text(), "operator_resume uninterrupted")
-        check(ckpt_mod.latest_checkpoint_step(str(d / "ckpt2")) == RESUME_LAST,
-              "operator_resume: uninterrupted run did not reach the last step")
-        diff = abs(resumed["final_loss"] - full["final_loss"])
+        full = float(base_losses[RESUME_LAST - 1])
+        diff = abs(resumed["final_loss"] - full)
         check(diff <= OPERATOR_RESUME_LOSS_ATOL,
               f"operator_resume: final loss {resumed['final_loss']} vs uninterrupted "
-              f"{full['final_loss']} (limit {OPERATOR_RESUME_LOSS_ATOL})")
+              f"{full} (limit {OPERATOR_RESUME_LOSS_ATOL})")
     finally:
-        if uninterrupted is not None:
-            stop_gang([uninterrupted])
         shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "operator_resume", "spec": str(NORTHSTAR_SPEC.relative_to(REPO)),
           "overrides": RESUME_OVERRIDES, "exit_codes": [rc1, rc2], "resumed_from": at_restart,
-          "latest_step": last, "resumed": resumed, "uninterrupted": full,
+          "latest_step": last, "resumed": resumed, "uninterrupted_final_loss": full,
+          "uninterrupted": "the train phase's run (same job, seed and batch)",
           "final_loss_diff": diff, "limit": OPERATOR_RESUME_LOSS_ATOL,
-          "bitwise_equal_final_loss": diff == 0.0,
-          "incarnation_s": [s1, s2], "uninterrupted_s": s3,
-          "note": "the uninterrupted run shares the card with the two incarnations",
-          "card": smi})
+          # the harness logs the final loss with %.9g, which round-trips f32
+          "bitwise_equal_final_loss": bool(np.float32(resumed["final_loss"])
+                                           == np.float32(full)),
+          "incarnation_s": [s1, s2], "card": smi})
 
 
 # ---------------------------------------------------------------------------
@@ -4999,6 +5012,308 @@ def phase_fls_timing(smi, dev="cuda"):
     return step
 
 
+# ---------------------------------------------------------------------------
+# elastic gangs: a shrink and a re-grow on the card, the reconciler played
+# ---------------------------------------------------------------------------
+
+ELASTIC_ENTRY = "tf_operator_tpu_torch.workloads.elastic:main"
+ELASTIC_JOB = "elastic-h100"
+ELASTIC_MEMBERS = 3
+# The elastic soak's data plane (workloads/elastic.py) with its device
+# state on the card: 480 windows at 0.02 s a window (a member consumes
+# ~8 a second at 0.05 s with the directive poll, the row's device-to-host
+# copy and the row store's fsync, on "NVIDIA H100 80GB HBM3, 700.00 W";
+# the two survivors still hold windows when the re-grown member has
+# started, ~9 s after its relaunch),
+# a checkpoint every 10 windows consumed by the chief, seed 12 (the soak's
+# recorded run). Worker 2 is killed after the first committed checkpoint,
+# the gang shrinks to two (epoch 1) and re-grows to three (epoch 2).
+ELASTIC_WL = {"total_windows": 480, "step_sleep_s": 0.02, "data_seed": 12,
+              "checkpoint_every": 10, "checkpoint_backend": "npy", "elastic": True,
+              "device_state": True, "device": "cuda"}
+ELASTIC_TIMEOUT_S = 150
+ELASTIC_MEMBER_LINE = re.compile(r"elastic member: (\{.*\})")
+ELASTIC_RESTORED = re.compile(r"re-grown member restored step (\d+) \(source=(\w+)\)")
+# The planted row update: the form ATen's CUDA kernels compile to a fused
+# multiply-add (ROW_DECAY * row + ROW_LR * w rounded once), where the
+# members round ROW_LR * w first, as the JAX package's jitted update does.
+ELASTIC_PLANT = "torch.add(ROW_DECAY * row, w, alpha=ROW_LR)"
+
+# The reconciler's part, in a process of its own (as the harness runs in
+# its own): the operator's object store and API server (the JAX package's
+# control plane, which imports no jax) holding the TPUJob, the three
+# members launched through the harness with TPUJOB_API_SERVER, worker 2
+# SIGKILLed after the first committed checkpoint, the shrink directive
+# written (the shape of controller/reconciler.py's shrink), the chief's
+# barrier awaited, worker 2 relaunched with TPUJOB_RESIZE_EPOCH and the
+# grow directive written (the reconciler's re-grow: create, then the
+# directive). argv[1]: a JSON file with the job name, entrypoint,
+# workload, each member's environment, the log and checkpoint
+# directories. Prints one ``conductor`` JSON line.
+ELASTIC_CONDUCTOR = r"""
+import importlib, json, os, signal, subprocess, sys, time
+cfg = json.load(open(sys.argv[1]))
+api = importlib.import_module("tf_operator_tpu.api.types")
+runtime = importlib.import_module("tf_operator_tpu.runtime")
+dashboard = importlib.import_module("tf_operator_tpu.dashboard")
+name, ckpt, n = cfg["job"], cfg["checkpoint_dir"], len(cfg["envs"])
+store = runtime.Store()
+server = dashboard.DashboardServer(store, host="127.0.0.1", port=0)
+server.start()
+job = api.TPUJob(metadata=api.ObjectMeta(name=name), spec=api.TPUJobSpec(replica_specs={
+    api.ReplicaType.WORKER: api.ReplicaSpec(replicas=n, template=api.ProcessTemplate(
+        entrypoint=cfg["entrypoint"]))}))
+job.spec.run_policy.elastic = True
+job.spec.workload = cfg["workload"]
+store.create(job)
+members = [f"{name}-worker-{i}" for i in range(n)]
+procs, killed, out, t0 = {}, set(), {"directives": []}, time.perf_counter()
+
+
+def launch(i, epoch=0):
+    env = dict(cfg["envs"][i], TPUJOB_API_SERVER=server.url)
+    if epoch:
+        env["TPUJOB_RESIZE_EPOCH"] = str(epoch)
+    with open(os.path.join(cfg["log_dir"], f"worker-{i}.log"), "a") as log:
+        procs[i] = subprocess.Popen([sys.executable, "-m", "tf_operator_tpu.rendezvous.harness"],
+                                    env=env, cwd=cfg["cwd"], stdout=log,
+                                    stderr=subprocess.STDOUT)
+
+
+def direct(epoch, direction, live):
+    d = {"epoch": epoch, "direction": direction, "world_size": len(live),
+         "members": list(live), "time": time.time()}
+
+    def mutate(j):
+        j.status.resize_epoch = epoch
+        j.status.resize_count += 1
+        j.status.world_size = len(live)
+        j.status.resize_directive = d
+
+    store.update_with_retry("TPUJob", "default", name, mutate)
+    out["directives"].append({**d, "at_s": time.perf_counter() - t0})
+
+
+def directive():
+    return dict(store.get("TPUJob", "default", name).status.resize_directive or {})
+
+
+def steps():
+    if not os.path.isdir(ckpt):
+        return []
+    return sorted(int(x[5:]) for x in os.listdir(ckpt) if x.startswith("step_")
+                  and os.path.exists(os.path.join(ckpt, x, "manifest.json")))
+
+
+def wait(cond, what, limit):
+    end = time.perf_counter() + limit
+    while not cond():
+        for i, p in procs.items():
+            if p not in killed and p.poll() not in (None, 0):
+                raise RuntimeError(f"worker {i} exited {p.returncode} waiting for {what}")
+        if time.perf_counter() > end:
+            raise TimeoutError(f"no {what} within {limit} s")
+        time.sleep(0.02)
+    out[what.replace(" ", "_") + "_s"] = time.perf_counter() - t0
+
+
+try:
+    for i in range(n):
+        launch(i)
+    wait(lambda: bool(steps()), "first commit", cfg["timeout_s"])
+    out["first_commit_step"] = steps()[0]
+    procs[n - 1].send_signal(signal.SIGKILL)
+    killed.add(procs[n - 1])
+    out["killed_rc"] = procs[n - 1].wait()
+    direct(1, "shrink", members[:-1])
+    wait(lambda: "boundary_remaining" in directive(), "shrink barrier", cfg["timeout_s"])
+    out["shrink_barrier"] = directive()
+    launch(n - 1, epoch=2)
+    direct(2, "grow", members)
+    wait(lambda: all(p.poll() is not None for p in procs.values()), "members done",
+         cfg["timeout_s"])
+    out["exit_codes"] = [procs[i].returncode for i in range(n)]
+    out["grow_barrier"] = directive()
+except Exception as exc:
+    out["error"] = f"{type(exc).__name__}: {exc}"
+finally:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    server.stop()
+out["seconds"] = time.perf_counter() - t0
+out["jax_loaded"] = any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+print("conductor " + json.dumps(out), flush=True)
+"""
+
+
+def elastic_expected(total: int, seed: int, dev="cpu") -> tuple:
+    """The uninterrupted run's eval digest and params digest (the port's
+    expected_params on ``dev``)."""
+    order = data_mod.elastic_global_order(total, seed=seed)
+    digest = elastic_mod._digest([{"p": p, "w": int(order[p])} for p in range(total)], total)
+    params = reshard.expected_params(total, reshard.PARAM_DIM, seed, order, device=dev)
+    return digest, params
+
+
+def elastic_plant(total: int, seed: int, dev) -> np.ndarray:
+    """expected_params through the planted row update (ELASTIC_PLANT)."""
+    sound = reshard.row_update
+
+    def fused(row, mom, w):
+        step = reshard.ROW_LR * w
+        return torch.add(reshard.ROW_DECAY * row, w, alpha=reshard.ROW_LR), \
+            step * torch.ones_like(mom)
+
+    reshard.row_update = fused
+    try:
+        return elastic_expected(total, seed, dev)[1]
+    finally:
+        reshard.row_update = sound
+
+
+def phase_elastic_resize(smi, dev="cuda"):
+    """An elastic job of three members on the card (ELASTIC_WL: the
+    reshard model's params and momentum on cuda), through the harness, the
+    reconciler played by ELASTIC_CONDUCTOR: a kill after the first commit,
+    a shrink, a relaunch and a re-grow. Every member exits 0; the eval
+    digest is the uninterrupted order's; the params digest is the port's
+    expected_params on the CPU (held to the JAX package's by
+    tests/test_torch_reshard.py); the chief's plan re-laid, re-fetched and
+    inited rows; the re-grown member restored from disk (no agents' shard
+    depots run here: the peer path is the CPU soak's gate) and every
+    member's rows lived on the card. First, in this process,
+    expected_params on the card must give the CPU's digest, and through
+    the planted row update (ELASTIC_PLANT) must not."""
+    t0 = time.perf_counter()
+    total, seed = ELASTIC_WL["total_windows"], ELASTIC_WL["data_seed"]
+    want_digest, want_params = elastic_expected(total, seed)
+    want = reshard.params_digest(want_params)
+    # the card rounds the row update as the CPU does; the fused form not
+    card = elastic_expected(total, seed, dev)[1]
+    check(reshard.params_digest(card) == want,
+          "elastic_resize: expected_params on the card differs from the CPU's")
+    planted = elastic_plant(total, seed, dev)
+    caught = reshard.params_digest(planted) != want
+    check(caught, f"elastic_resize: the planted row update ({ELASTIC_PLANT}) gave the "
+          "sound digest")
+    rows_changed = int((planted != want_params).any(axis=1).sum())
+    d = gang_dir("elastic_resize")
+    logs = d / "logs"
+    logs.mkdir()
+    wl = {**ELASTIC_WL, "workdir": str(d / "gang"), "checkpoint_dir": str(d / "ckpt")}
+    spec = {"metadata": {"name": ELASTIC_JOB},
+            "spec": {"replica_specs": {"Worker": {"template": {
+                "entrypoint": ELASTIC_ENTRY, "chips_per_process": 1}}}, "topology": {}}}
+    cfg = {"job": ELASTIC_JOB, "entrypoint": ELASTIC_ENTRY, "workload": wl,
+           "envs": [gang_env(spec, wl, i, ELASTIC_MEMBERS, "localhost:0", {}, {})
+                    for i in range(ELASTIC_MEMBERS)],
+           "log_dir": str(logs), "checkpoint_dir": wl["checkpoint_dir"], "cwd": str(REPO),
+           "timeout_s": ELASTIC_TIMEOUT_S}
+    (d / "conductor.json").write_text(json.dumps(cfg))
+    try:
+        proc = subprocess.run([sys.executable, "-c", ELASTIC_CONDUCTOR, str(d / "conductor.json")],
+                              cwd=REPO, env=cfg["envs"][0], capture_output=True, text=True,
+                              timeout=4 * ELASTIC_TIMEOUT_S)
+        texts = [(logs / f"worker-{i}.log").read_text() for i in range(ELASTIC_MEMBERS)]
+        tail = "\n".join(t[-2000:] for t in texts)
+        found = re.findall(r"^conductor (\{.*\})$", proc.stdout, re.M)
+        check(proc.returncode == 0 and bool(found),
+              f"elastic_resize: conductor exit {proc.returncode}:\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-3000:]}\n{tail}")
+        run = json.loads(found[-1])
+        check("error" not in run, f"elastic_resize: {run.get('error')}: {run}\n{tail}")
+        check(not run["jax_loaded"], "elastic_resize: the conductor loaded jax")
+        check(run["exit_codes"] == [0] * ELASTIC_MEMBERS and run["killed_rc"] == -9,
+              f"elastic_resize: exit codes {run['exit_codes']}, killed {run['killed_rc']}:\n"
+              f"{tail}")
+        done = json.loads((d / "gang" / "done.json").read_text())
+        check(done["digest"] == want_digest,
+              f"elastic_resize: eval digest {done['digest']} != uninterrupted {want_digest}")
+        check(done["params_digest"] == want,
+              f"elastic_resize: params digest {done['params_digest']} != expected {want}")
+        plan = done["reshard"]
+        check(min(plan["relaid"], plan["refetched"], plan["inited"]) >= 1,
+              f"elastic_resize: the chief's plan {plan}")
+        lines = [json.loads(ELASTIC_MEMBER_LINE.findall(t)[-1]) for t in texts
+                 if ELASTIC_MEMBER_LINE.findall(t)]
+        check(len(lines) == ELASTIC_MEMBERS, f"elastic_resize: member lines {lines}\n{tail}")
+        check(done["device"].startswith("cuda")
+              and all(str(x["device"]).startswith("cuda") for x in lines),
+              f"elastic_resize: rows not on the card: {done['device']}, {lines}")
+        restored = ELASTIC_RESTORED.findall(texts[-1])
+        check(bool(restored) and restored[-1][1] == "disk"
+              and lines[-1]["restore_source"] == "disk",
+              f"elastic_resize: re-grown member's restore {restored}, {lines[-1]}")
+        check(sum(x["consumed"] for x in lines) <= total, f"elastic_resize: {lines}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "elastic_resize", "members": ELASTIC_MEMBERS, "workload": ELASTIC_WL,
+          "exit_codes": run["exit_codes"], "killed_rc": run["killed_rc"],
+          "first_commit_step": run["first_commit_step"], "directives": run["directives"],
+          "shrink_barrier": run["shrink_barrier"], "eval_digest_equal": True,
+          "params_digest": done["params_digest"], "reshard": plan, "member_lines": lines,
+          "restored": {"step": int(restored[-1][0]), "source": restored[-1][1]},
+          "device": done["device"], "card_expected_equals_cpu": True,
+          "plant": {"form": ELASTIC_PLANT, "caught": caught, "rows_changed": rows_changed},
+          "conductor_s": run["seconds"],
+          "conductor_marks_s": {k: v for k, v in run.items() if k.endswith("_s")},
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# MNIST: the operator's dist_mnist analogue
+# ---------------------------------------------------------------------------
+
+# The workload's synthetic mode at examples/mnist_dp.json's width (hidden
+# 128, batch 256, 30 steps); f32 with TF32 off on both sides, so the card
+# and the CPU part only by sum order: a [256, 784] x [784, 128] product
+# sums 784 terms (~sqrt(784) * 2^-24 relative, ~1e-6 of a logit), the CE
+# ~2.3, and two SGD updates at lr 0.1 barely grow it; 1e-4 is ~50x that.
+MNIST_WL = {"steps": 30, "batch_size": 256, "hidden": 128, "lr": 0.1}
+MNIST_CHECKED = 3
+MNIST_LOSS_ATOL = 1e-4
+# the idx path on idx_fixture's random images and labels (2,048 / 512):
+# 2 epochs of 8 steps; its accuracy is logged, not gated
+MNIST_IDX_WL = {"epochs": 2, "batch_size": 256, "hidden": 128, "lr": 0.1}
+
+
+def phase_mnist_train(smi, dev="cuda"):
+    """workloads/mnist.py in process on the card: the synthetic mode's
+    first MNIST_CHECKED losses against the port's CPU run within
+    MNIST_LOSS_ATOL and the loss falling (run_mnist raises otherwise);
+    then the idx path through MnistIdxDataset and the DeviceLoader on a
+    seeded write_idx fixture, its test accuracy logged."""
+    t0 = time.perf_counter()
+    cpu = mnist_mod.run_mnist(MNIST_WL, device="cpu")
+    t1 = time.perf_counter()
+    card = mnist_mod.run_mnist(MNIST_WL, device=dev)
+    card_s = time.perf_counter() - t1
+    diffs = [abs(a - b) for a, b in zip(card.losses[:MNIST_CHECKED], cpu.losses)]
+    check(all(np.isfinite(card.losses)) and max(diffs) <= MNIST_LOSS_ATOL,
+          f"mnist_train: card losses {card.losses[:MNIST_CHECKED]} vs CPU "
+          f"{cpu.losses[:MNIST_CHECKED]} (limit {MNIST_LOSS_ATOL})")
+    check(all(t.is_cuda for pair in card.params for t in pair), "mnist_train: params off the card")
+    d = CKPT_ROOT / "mnist"
+    try:
+        shutil.rmtree(d, ignore_errors=True)
+        t2 = time.perf_counter()
+        real = mnist_mod.run_mnist({**MNIST_IDX_WL, "data_dir": str(idx_fixture(d))}, device=dev)
+        real_s = time.perf_counter() - t2
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(all(np.isfinite(real.losses)) and 0.0 <= real.accuracy <= 1.0,
+          f"mnist_train: idx run losses {real.losses[-3:]}, accuracy {real.accuracy}")
+    emit({"phase": "mnist_train", "workload": MNIST_WL, "losses": card.losses,
+          "cpu_losses": cpu.losses[:MNIST_CHECKED], "loss_abs_diff": diffs,
+          "limit": MNIST_LOSS_ATOL, "card_s": card_s,
+          "idx": {**MNIST_IDX_WL, "train": REAL_TRAIN, "test": real.test_n, "steps": real.steps,
+                  "accuracy": real.accuracy, "final_loss": real.losses[-1], "seconds": real_s,
+                  "note": "random labels: the accuracy is logged, not gated"},
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5047,7 +5362,7 @@ def main() -> int:
     train_losses, train_norms, train_step_ms = run.losses, run.grad_norms, run.step_s * 1e3
     del run
     torch.cuda.empty_cache()
-    run_phase("operator_resume", phase_operator_resume, smi)
+    run_phase("operator_resume", phase_operator_resume, smi, train_losses)
     # multi-process training: the gang's ranks through the harness
     run_phase("dist_smoke", phase_dist_smoke, smi)
     run_phase("nccl_world1", phase_nccl_world1, smi, train_losses, train_norms, train_step_ms,
@@ -5059,12 +5374,18 @@ def main() -> int:
     peer = beside(run_phase, "gang_peer_loss", phase_gang_peer_loss, smi)
     cp_runs = run_phase("cp_train", phase_cp_train, smi, *cut_base)
     peer()
+    # an elastic job, a member lost and re-grown (the reconciler played):
+    # its members are light (their time is start-up, the directive polls
+    # and the row store's fsyncs) and run beside the in-process trajectory
+    # and remat phases, which write nothing to disk
+    elastic = beside(run_phase, "elastic_resize", phase_elastic_resize, smi, dev)
     run_phase("jax_trajectory", phase_jax_trajectory, dev, smi)
     run_phase("jax_trajectory_bert", phase_jax_trajectory, dev, smi, trajectory.BERT_ARTIFACT,
               phase="jax_trajectory_bert")
     # the remat policies at the north star's shape, and the other new paths
     # at small size against the CPU
     run_phase("remat_policies", phase_remat_policies, smi, dev)
+    elastic()
     torch.cuda.empty_cache()
     for name, wl in REMAT_PARITY:
         run_phase(name, phase_train_parity, dev, wl, phase=name)
@@ -5138,6 +5459,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("resnet_real", phase_resnet_real, smi, dev)
     torch.cuda.empty_cache()
+    run_phase("mnist_train", phase_mnist_train, smi, dev)
     run_phase("resnet_parity", phase_resnet_parity, dev)
     torch.cuda.empty_cache()
     flt = run_phase("fls_timing", phase_fls_timing, smi)

@@ -15,7 +15,10 @@ step 3 of its first incarnation, after its gang's step-2 checkpoint:
 rank 0 sees the lost peer and exits 138, the controller restarts the
 gang, which resumes warm from step 2 and trains to the end; and a tiny
 LM pipelined under ``{"pp": 2}`` (1f1b, 2 microbatches) that
-checkpoints every 2 steps. All are
+checkpoints every 2 steps; and the port's MNIST as two-process dp gangs:
+``examples/mnist_dp_h100.json`` on the CPU (a coordinator and a worker,
+synthetic blobs) and two workers on an idx fixture of sklearn's digits,
+trained to the JAX e2e test's 0.95 accuracy target. All are
 submitted at once to one operator (a module fixture); each test waits
 for its own.
 """
@@ -98,6 +101,19 @@ GANGS = {
 }
 
 
+MNIST_ENTRY = "tf_operator_tpu_torch.workloads.mnist:main"
+# the JAX e2e test's real-data job (tests/test_e2e_local.py)
+MNIST_IDX_WL = {"epochs": 30, "batch_size": 128, "hidden": 128, "lr": 0.1,
+                "target_accuracy": 0.95, "device": "cpu"}
+
+
+def _digits(d):
+    """sklearn's digits as idx files, as the JAX e2e test writes them."""
+    from test_torch_mnist import write_digits_fixture
+
+    return write_digits_fixture(d)
+
+
 def _prepare(tmp):
     """The memmapped corpus and the eval-only job's checkpoints (the port's
     tiny LM after 2 steps)."""
@@ -168,6 +184,18 @@ def operator(tmp_path_factory):
                 job.spec.workload["checkpoint_dir"] = str(tmp / f"{name}-ckpt")
             job.spec.topology.mesh_axes = dict(axes)
             store.create(job)
+        with open(os.path.join(ROOT, "examples", "mnist_dp_h100.json")) as f:
+            mnist = TPUJob.from_dict(json.load(f))
+        mnist.metadata.name = "port-mnist-dp"
+        mnist.spec.workload["device"] = "cpu"  # the CPU variant of the card's twin
+        for spec in mnist.spec.replica_specs.values():
+            spec.template.env.update(PORT_ENV)
+        store.create(mnist)
+        job = TPUJob(metadata=ObjectMeta(name="port-mnist-idx"), spec=TPUJobSpec(
+            replica_specs={ReplicaType.WORKER: ReplicaSpec(replicas=2, template=ProcessTemplate(
+                entrypoint=MNIST_ENTRY, env=dict(PORT_ENV)))}))
+        job.spec.workload = {**MNIST_IDX_WL, "data_dir": str(_digits(tmp / "digits"))}
+        store.create(job)
         yield store, tmp / "logs", ckpt, marker, tmp
     finally:
         ctl.stop()
@@ -335,3 +363,31 @@ def test_port_gang_survives_a_lost_peer(operator):
     assert "lm done: preset=tiny" in text
     ckpt = str(tmp / "port-lm-peer-loss-ckpt")
     assert latest_checkpoint_step(ckpt) == 7 and checkpoint_world_size(ckpt, 7) == 2
+
+
+def test_port_mnist_example_gang_succeeds(operator):
+    """examples/mnist_dp_h100.json on the CPU: the coordinator and the
+    worker over gloo, 30 synthetic steps at batch 256, the loss falling
+    (the workload raises otherwise), both ranks in one gang."""
+    store, logs = operator[:2]
+    ok = wait_for(lambda: has_condition(store.get("TPUJob", "default", "port-mnist-dp").status,
+                                        ConditionType.SUCCEEDED), timeout=180)
+    st = store.get("TPUJob", "default", "port-mnist-dp").status
+    coord = logs / "default_port-mnist-dp-coordinator-0.log"
+    text = coord.read_text() if coord.exists() else ""
+    assert ok, f"{[(c.type.value, c.reason, c.message) for c in st.conditions]}\n{text[-3000:]}"
+    assert st.restart_count == 0
+    assert "mnist done (synthetic): loss" in text and "over 30 steps" in text
+    assert "joined the gang: rank 0 of 2, backend gloo on cpu" in text
+
+
+def test_port_mnist_idx_gang_reaches_accuracy(operator):
+    """Two workers read disjoint strides of the digits' idx files, train
+    data-parallel and reach the JAX e2e test's 0.95 test accuracy (the
+    workload's own gate fails the job below it)."""
+    store, logs = operator[:2]
+    st, text = _succeeded(store, "port-mnist-idx", logs)
+    acc = float(text.split("mnist done (real data): test accuracy ")[1].split()[0])
+    assert acc > 0.95 and "over 297 examples (30 epochs" in text
+    rank1 = (logs / "default_port-mnist-idx-worker-1.log").read_text()
+    assert "joined the gang: rank 1 of 2, backend gloo on cpu" in rank1

@@ -42,6 +42,8 @@ def test_port_and_chip_smoke_import_no_jax():
     fresh interpreter without pulling in jax or tf_operator_tpu."""
     mods = _port_modules()
     assert "tf_operator_tpu_torch.serve.engine" in mods
+    for m in ("train.reshard", "workloads.elastic", "workloads.soak", "workloads.mnist"):
+        assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -83,6 +85,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
     # the workload's device key defaults to cuda: no quiet CPU run
     with pytest.raises(RuntimeError, match="CUDA"):
         run_serve({"preset": "tiny", "requests": 1})
+    from tf_operator_tpu_torch.workloads.mnist import run_mnist
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_mnist({"steps": 2})
 
 
 def test_cpu_device_and_tf32_off():

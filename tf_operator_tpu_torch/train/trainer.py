@@ -59,6 +59,9 @@ from tf_operator_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
     MeshPlan,
     ShardingRules,
+    block_counts,
+    block_owner,
+    recut,
     shard_tensor,
     split_axes,
 )
@@ -255,6 +258,52 @@ class Trainer:
         if self.plan is not None:
             params = self.state_template().params
             manager.set_layout(self.mesh, params, self._placements(params))
+
+    def reshard_state(self, state: TrainState, source: MeshPlan) -> TrainState:
+        """Re-lay ``state``, this rank's blocks under ``source`` (the plan
+        of another mesh over the same ranks and process group), onto this
+        trainer's placements: the elastic resize seam. Every rank all-gathers
+        its blocks of a leaf at once and cuts its new block from them by the
+        checkpoint's block algebra (``recut``: the source blocks the new
+        block overlaps, each read from its ``block_owner``), so a resize and
+        a re-cut restore lay blocks out by one rule. The optimizer's moments
+        follow their params' placements; the step count and ``extra`` are
+        replicated and kept. Values move unchanged, bit for bit."""
+        if self.plan is None:
+            raise ValueError("reshard_state needs a trainer on a mesh")
+        # source ranks in the order gather_no_grad stacks their blocks
+        order = [int(r) for r in source.mesh.mesh.flatten().tolist()]
+        if sorted(order) != sorted(int(r) for r in self.mesh.mesh.flatten().tolist()):
+            raise ValueError(f"source mesh ranks {sorted(order)} are not this trainer's")
+        old_places = ([(None,) * p.dim() for p in _leaves(state.params)]
+                      if source.placements is None
+                      else _leaves_of_placements(source.placements))
+        new_places = self._placements(state.params)
+        axes = tuple(source.mesh.mesh_dim_names or ())
+
+        @torch.no_grad()
+        def relay(leaf: torch.Tensor, src, dst) -> torch.Tensor:
+            counts = block_counts(source.sizes, src)
+            whole = tuple(s * n for s, n in zip(leaf.shape, counts))
+            blocks = coll.gather_no_grad(leaf.contiguous(), source.mesh, axes)
+            out = torch.empty(tuple(s // n for s, n in zip(
+                whole, block_counts(self.plan.sizes, dst))), dtype=leaf.dtype,
+                device=leaf.device)
+            for index, src_sl, dst_sl in recut(whole, source.sizes, src, self.mesh, dst,
+                                               self.plan.rank):
+                owner = block_owner(source.mesh, src, index)
+                out[dst_sl] = blocks[order.index(owner)][src_sl]
+            return out
+
+        def relay_tree(tree):
+            leaves = iter(zip(old_places, new_places))
+            moved = {id(p): relay(p.detach(), *next(leaves)) for p in _leaves(tree)}
+            return tree_map(lambda p: moved[id(p)], tree)
+
+        params = tree_map(lambda p: p.requires_grad_(True), relay_tree(state.params))
+        opt = state.opt_state
+        slots = {k: v if k == "count" else relay_tree(v) for k, v in opt.items()}
+        return TrainState(params, OptState(slots, chain=opt.chain), state.step, state.extra)
 
     def restore_or_init(self, seed: int = 0, manager=None) -> TrainState:
         """Resume from ``manager``'s latest checkpoint if one exists (under
